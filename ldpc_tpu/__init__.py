@@ -7,15 +7,16 @@ AWGN / partial-band / jamming channels, interleaving, iterative sum-product
 decoding with syndrome early termination, BER/FER/normalized-LLR statistics,
 adaptive rate control, and JSON/CSV/plot export.
 
-Layer map (TPU-first, not a port):
+Layer map (designed for accelerators, not a port):
   models/   -- code database: ALIST parsing, bit-packed GF(2) linear algebra,
                standard-form + generator construction, Richardson-Urbanke
                decomposition, padded fixed-degree edge layout, matrix catalog.
-  ops/      -- batched device compute: GF(2) encode (MXU matmul), vectorized
+  ops/      -- batched device compute: GF(2) encode (one matmul), vectorized
                channels + LLR generation, permutation interleavers, flooding
-               SPA / min-sum decoders (jnp reference + Pallas kernel).
+               and layered SPA / min-sum decoders (jnp reference + the QC
+               Pallas kernel for GPUs).
   parallel/ -- jax.sharding Mesh construction, sharded Monte-Carlo steps,
-               psum-reduced counters for multi-chip / multi-host scaling.
+               cross-device counter sums for multi-card / multi-host scaling.
   sim/      -- host-side orchestration: SNR sweep runner, adaptive controller,
                results model (JSON/CSV), visualization, CLI.
   utils/    -- PRNG helpers, timing/profiling.

@@ -1,5 +1,5 @@
 """Analysis tools: density evolution, EXIT charts, thresholds, failure
-profiling, importance-sampled error floors, roofline accounting."""
+profiling, importance-sampled error floors."""
 
 from ldpc_tpu.analysis.density_evolution import (
     bec_erasure_fixed_point,
@@ -43,13 +43,6 @@ from ldpc_tpu.analysis.importance import (
     make_is_step,
     orbit_supports,
 )
-from ldpc_tpu.analysis.roofline import (
-    channel_census,
-    decode_census,
-    measure_vpu_rates,
-    speed_of_light,
-    vpu_peak_ops_per_s,
-)
 
 __all__ = [
     "bec_erasure_fixed_point",
@@ -82,9 +75,4 @@ __all__ = [
     "estimate_point",
     "make_is_step",
     "orbit_supports",
-    "channel_census",
-    "decode_census",
-    "measure_vpu_rates",
-    "speed_of_light",
-    "vpu_peak_ops_per_s",
 ]

@@ -30,15 +30,14 @@ import numpy as np
 
 
 def make_profiler(executor, k_active: int):
-    """Jitted scan of unfused MC steps -> on-device failure-weight histograms.
+    """Jitted scan of MC steps -> on-device failure-weight histograms.
 
     Returns ``chunk(key_point, start, consts, n_steps) ->
     (hist_detected, hist_undetected, frames)`` where the histograms are
     f32[k_active+1] counts over info-bit error weight. Key folding matches
     PointExecutor.run_point, so (for the same point index) the profiled
-    stream IS the stream a normal run at this point would decode. Works
-    with fused and unfused executors (both steps yield per-frame stats);
-    requires exact_ber=True, without which metrics.block_stats zeroes the
+    stream IS the stream a normal run at this point would decode. Requires
+    exact_ber=True, without which metrics.block_stats zeroes the
     error bits of syndrome-passing frames and the undetected-error
     histogram would be silently empty.
     """
@@ -143,8 +142,7 @@ def make_pattern_profiler(executor, max_patterns: int = 256,
       frames and no frame ever selects).
 
     The buffer is filled on-device -- host traffic per dispatch group is
-    one [K, n] fetch regardless of batch count. Requires an unfused
-    executor (fused='off').
+    one [K, n] fetch regardless of batch count.
     """
     if kind not in ("detected", "undetected"):
         raise ValueError(f"kind must be 'detected' or 'undetected': {kind!r}")
@@ -153,15 +151,9 @@ def make_pattern_profiler(executor, max_patterns: int = 256,
             "undetected-error capture needs exact_ber=True: without it "
             "error_bits is zeroed for syndrome-passing frames"
         )
-    builder = getattr(executor, "_pattern_step_builder", None)
-    if builder is None:
-        raise ValueError(
-            "pattern capture needs the unfused pipeline: build the "
-            "PointExecutor with fused='off'"
-        )
     pstep = getattr(executor, "_pattern_step", None)
     if pstep is None:
-        pstep = executor._pattern_step = builder()
+        pstep = executor._pattern_step = executor._pattern_step_builder()
     K = max_patterns
     n = executor.code.n
 

@@ -46,13 +46,11 @@ Weight computation never forms q directly: with n = sigma*z + D_sel,
 
     w(n) = 1 / (pi0 + (1 - pi0)/M * sum_j exp((n . D_j - |D_j|^2 / 2) / sigma^2))
 
-and the M dot products are one [B, n] x [n, M] matmul on the MXU.
+and the M dot products are one [B, n] x [n, M] matmul.
 
-The fused kernel cannot inject biased noise (its PRNG lives in-kernel), so
-the IS step uses the unfused path: XLA channel around the QC decode kernel
-(~0.5x throughput -- irrelevant at IS sample sizes). Requires the 48-bit
-tail-exact noise era only for its VALIDATION overlap; the IS draws use
-jax.random.normal, which is tail-exact anyway.
+The IS step builds its own biased channel in XLA around the same decoder
+the runner would pick (:func:`ldpc_tpu.sim.runner._select_decoder`). The
+IS draws use jax.random.normal, which is tail-exact.
 
 The reference simulator has no counterpart to any of this: at ~363 info
 bits/s its 50-300-block sweeps resolve FER ~2e-2 (SURVEY.md section 6).
@@ -172,7 +170,7 @@ def make_is_step(code: LDPCCode, opts: SimOptions, shifts: np.ndarray,
     info_pos = np.asarray(spec.info_pos(opts.decode_graph)[: code.k],
                           np.int32)
     decode, kernel_used = _select_decoder(
-        code, opts, layout, info_pos, opts.iterations, batch=opts.batch
+        code, opts, layout, info_pos, opts.iterations
     )
     encode = make_encoder(spec, opts.decode_graph)
 

@@ -2,8 +2,8 @@
 
 Drop-in flag surface for the reference CLI (`python_ldpc_app/main.py:445-524`)
 -- every reference flag is accepted with the same name and default -- plus
-the TPU-native knobs (--fidelity, --decode-graph, --check-rule,
---noise-model, --batch, --seed, --exact-ber).
+the knobs of this framework (--fidelity, --decode-graph, --check-rule,
+--noise-model, --batch, --seed, --exact-ber, --kernel, --schedule).
 
 Example:
   python -m ldpc_tpu.cli --matrix <db>/BCH_7_4_1_strip.alist.txt \
@@ -32,7 +32,7 @@ def _parse_alpha(s: str):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ldpc_tpu",
-        description="TPU-native LDPC link simulator",
+        description="Accelerated LDPC link simulator",
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="""
 Examples:
@@ -112,16 +112,17 @@ Examples:
     parser.add_argument("--adaptive-high-ber", type=float, default=1e-2)
     parser.add_argument("--adaptive-low-ber", type=float, default=1e-5)
 
-    # --- TPU-native flags ---
+    # --- decode graph, kernel and schedule ---
     parser.add_argument("--fidelity", type=str, choices=["reference", "exact"],
                         default="reference",
                         help="'reference' (default): bit-compatible with the reference "
                              "simulator (H_std graph, legacy check rule, legacy noise) "
                              "-- this is the SLOW parity mode: the ~40x-denser H_std "
-                             "graph is ineligible for the fused TPU kernel. "
+                             "graph runs on the XLA decoder only. "
                              "'exact': original sparse graph, correct SPA parity rule, "
-                             "calibrated noise -- the fast TPU path; use it unless you "
-                             "need curve-for-curve agreement with the reference.")
+                             "calibrated noise -- the fast path (QC kernel on a GPU); "
+                             "use it unless you need curve-for-curve agreement with "
+                             "the reference.")
     parser.add_argument("--decode-graph", type=str, choices=["std", "orig"], default=None,
                         help="Override the decode Tanner graph")
     parser.add_argument("--check-rule", type=str, choices=["legacy", "exact"], default=None,
@@ -135,29 +136,10 @@ Examples:
                         help="Count undetected-error bits too (reference counts only failed frames)")
     parser.add_argument("--kernel", type=str, choices=["auto", "pallas", "xla"],
                         default="auto",
-                        help="Decode kernel: fused Pallas QC kernel or XLA gather decoder")
-    parser.add_argument("--msg-store", type=str, choices=["f32", "int8"],
-                        default="f32", dest="msg_store",
-                        help="Extrinsic-message storage in the Pallas "
-                             "kernels: 'int8' packs E onto the FER-free "
-                             "256-level grid (min-sum variants only; 3-4x "
-                             "smaller VMEM scratch, measured slightly "
-                             "slower -- a capacity knob)")
-    parser.add_argument("--fused", type=str, choices=["auto", "on", "off"],
-                        default="auto",
-                        help="Fully-fused Monte-Carlo step (channel noise from the "
-                             "in-kernel TPU PRNG + decode + counters in one Pallas "
-                             "kernel). 'auto': on TPU whenever eligible; 'off': keep "
-                             "the XLA pipeline around the decode kernel")
-    parser.add_argument("--two-phase", type=str, default="auto",
-                        dest="two_phase", metavar="{auto,off,N}",
-                        help="Two-phase fused dispatch: phase 1 decodes every "
-                             "frame for N iterations, then only the "
-                             "unconverged frames are compacted and re-decoded "
-                             "with the full budget -- bit-identical results. "
-                             "'auto' probes each SNR point and enables the "
-                             "half-budget split only where it wins (it loses "
-                             "at FER~1); N forces the split everywhere")
+                        help="Decode kernel: 'auto' picks the QC Pallas kernel "
+                             "on a GPU when the code is eligible, else the "
+                             "XLA decoder; 'pallas' forces "
+                             "the kernel (GPU only); 'xla' the XLA decoders")
     parser.add_argument("--schedule", type=str, choices=["flooding", "layered"],
                         default="flooding",
                         help="Message-passing schedule: 'flooding' (the reference's) "
@@ -168,33 +150,13 @@ Examples:
                         help="Layered-sweep row order: 'serial' (base rows "
                              "0..mb-1) or 'paired' (disjoint-support row "
                              "pairs per step -- two independent dependence "
-                             "chains for the VPU; a different, equally valid "
+                             "chains per step; a different, equally valid "
                              "serial-C schedule)")
-    parser.add_argument("--check-every", type=int, default=1,
-                        help="Syndrome-check cadence in the Pallas decode "
-                             "loops: N runs N message-passing sweeps per "
-                             "check (~14%% of a layered iteration's ops). "
-                             "Convergence detection coarsens to N-sweep "
-                             "windows (conv_iter reports the check "
-                             "iteration); requires N | iterations and no "
-                             "--normalized-llr")
-    parser.add_argument("--sublane-groups", type=str, default="auto",
-                        dest="sublane_groups", metavar="{auto,N}",
-                        help="Sublane grouping in the Pallas decode loops: "
-                             "G stacks G independent 128-codeword groups "
-                             "into the sublane dimension (per-codeword "
-                             "counters bit-identical to G=1; tile "
-                             "early-exit coarsens to G*128 codewords). "
-                             "'auto' fills one (8,128) vreg: G=8//Z for "
-                             "Z<8 (measured x1.5-1.6 at Z=4), else 1 "
-                             "(measured losses at Z>=8) -- "
-                             "examples/sublane_fill")
     parser.add_argument("--minsum-alpha", type=_parse_alpha, default=0.75,
                         help="Normalized min-sum scale factor, or a "
                              "comma-separated per-iteration schedule (e.g. a "
                              "learned one, ldpc_tpu.analysis.learned_minsum; "
-                             "schedules run on all kernels and schedules, "
-                             "including the fused Pallas path)")
+                             "schedules run on all kernels and schedules)")
     parser.add_argument("--minsum-beta", type=float, default=0.15,
                         help="Offset min-sum offset")
     parser.add_argument("--checkpoint", type=str, default=None,
@@ -276,13 +238,8 @@ def options_from_args(args: argparse.Namespace) -> SimOptions:
         seed=args.seed,
         exact_ber=args.exact_ber,
         kernel=args.kernel,
-        fused=args.fused,
-        two_phase=args.two_phase,
         schedule=args.schedule,
         layer_order=args.layer_order,
-        check_every=args.check_every,
-        msg_store=args.msg_store,
-        sublane_groups=args.sublane_groups,
         shorten=args.shorten,
         puncture=args.puncture,
         target_errors=args.target_errors,
@@ -365,7 +322,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     say("=" * 60)
-    say("ldpc_tpu - TPU-native LDPC link simulator")
+    say("ldpc_tpu - accelerated LDPC link simulator")
     say("=" * 60)
     say(f"Matrix file: {opts.matrix}")
     say(f"Blocks per SNR point: {opts.blocks}")
@@ -379,7 +336,7 @@ def main(argv: list[str] | None = None) -> int:
         f"rule={opts.check_rule}, noise={opts.noise_model})")
     if opts.fidelity == "reference":
         say("  note: 'reference' is the slow parity mode (dense H_std graph, "
-            "no fused kernel); pass --fidelity exact for the fast TPU path")
+            "XLA decoder only); pass --fidelity exact for the fast path")
     if opts.adaptive:
         say(f"Adaptive mode: on (strategy: {opts.adaptive_strategy})")
     say("=" * 60)
@@ -465,9 +422,9 @@ def main(argv: list[str] | None = None) -> int:
             from ldpc_tpu.analysis.failures import profile_sweep
             from ldpc_tpu.sim.runner import snr_steps
 
-            # per-frame stats need the unfused step; undetected errors need
-            # exact accounting (the sweep above is not re-run)
-            popts = replace(opts, fused="off", exact_ber=True, adaptive=False)
+            # undetected errors need exact accounting (the sweep above is
+            # not re-run)
+            popts = replace(opts, exact_ber=True, adaptive=False)
             profiles = profile_sweep(
                 code, popts,
                 snr_steps(opts.initial_snr, opts.end_snr, opts.step_snr),

@@ -13,7 +13,7 @@ Re-designs the reference's `EncoderDecoderData`
   gather/reduce with static shapes -- no sparse formats, no data-dependent
   shapes, XLA/Pallas friendly.
 * Encoding is expressed as a dense GF(2) matmul ``parity = u @ P mod 2``
-  (MXU-friendly) plus an optional column gather; both the standard systematic
+  (one matmul) plus an optional column gather; both the standard systematic
   encoder (G = [I_k | A^T], `encoder_decoder_data.py:319-344`) and the
   Richardson-Urbanke encoder (ldpc_tpu.models.ru) lower to this EncodeSpec.
 """

@@ -2,12 +2,10 @@
 
 Every LDPC family in the reference database (WiMAX 802.16e, WiFi 802.11n,
 WiGig 802.11ad, WRAN 802.22, CCSDS, Tanner) is quasi-cyclic: H consists of
-Z x Z blocks that are sums of cyclically shifted identities. On TPU this is
-the difference between a decoder built on (unsupported/slow) hardware gathers
-and one built on static cyclic rolls: the Tanner-graph edge permutation
-factorizes into per-block-edge rolls along the lift dimension, which the VPU
-executes as register shifts with zero memory traffic (see
-ldpc_tpu.ops.spa_pallas).
+Z x Z blocks that are sums of cyclically shifted identities. The Tanner-graph
+edge permutation then factorizes into per-block-edge cyclic shifts along the
+lift dimension instead of general gathers; the QC kernel turns each shift
+into a row-permuted, coalesced load (see ldpc_tpu.ops.spa_pallas).
 
 The detector brute-forces candidate lift sizes Z (divisors of gcd(n, m), the
 largest first) and verifies that every nonzero diagonal of every block is
@@ -105,12 +103,13 @@ def paired_layer_groups(qc: QCLayout) -> list[list[int]]:
     """Greedy pairing of base rows with disjoint base-column support.
 
     A layered (serial-C) sweep processes base rows one at a time; each
-    layer's check update -> posterior update is a DEPENDENT op chain, which
-    under-fills the VPU's 4-wide ALUs. Two layers whose base-column supports
-    are disjoint neither read nor write the same posteriors, so executing
+    layer's check update -> posterior update is a DEPENDENT op chain. Two
+    layers whose base-column supports are disjoint neither read nor write
+    the same posteriors, so executing
     them back-to-back is arithmetic-identical to executing them serially --
     but expressing both in one step hands the compiler two independent
-    chains to interleave (ILP doubling on the serial bottleneck).
+    chains to interleave, and the QC kernel needs one barrier per pair
+    instead of one per row.
 
     Returns groups of 1-2 row indices covering every base row exactly once.
     Pairing is deterministic: rows are visited in a STATIC

@@ -17,8 +17,8 @@ a TODO). This module implements the classical RU construction correctly:
    (`encoder_decoder_data.py:523-552`).
 3. The whole encoder is then lowered to a dense parity-generator matmul
    ``parity = u @ P mod 2`` plus a column gather into the H_std domain
-   (EncodeSpec) -- on TPU, a precomputed MXU matmul beats sparse
-   back-substitution, so the O(n) sparse encode of the paper is folded into
+   (EncodeSpec) -- on an accelerator, a precomputed dense matmul beats
+   sparse back-substitution, so the O(n) sparse encode of the paper is folded into
    load-time precomputation:
       p1 = W1 @ s  with W1 = phi^-1 (C + E T^-1 A)
       p2 = W2 @ s  with W2 = T^-1 (A + B W1)

@@ -1,10 +1,12 @@
-"""Batched GF(2) systematic encoding on the MXU.
+"""Batched GF(2) systematic encoding as one matrix product.
 
 The reference encodes one codeword at a time with a scipy sparse
 matrix-vector product (`python_ldpc_app/data_buffer.py:47-82`). Here a whole
-batch of info words is encoded with one dense f32 matmul on the MXU --
-``parity = (u @ P) mod 2`` is exact in float32 for k < 2^24 -- followed by a
-static column gather into the decode domain. Both the standard generator
+batch of info words is encoded with one dense f32 matmul -- ``parity =
+(u @ P) mod 2`` is exact for k < 2^24 when the product accumulates in f32,
+including on a GPU whose f32 matmul runs in TF32: the operands are 0/1,
+which TF32 holds exactly -- followed by a static column gather into the
+decode domain. Both the standard generator
 (G = [I_k | A^T]) and the Richardson-Urbanke encoder lower to the same form
 (see ldpc_tpu.models.code.EncodeSpec).
 """
@@ -36,41 +38,11 @@ def make_encoder(spec, graph: str = "orig"):
     return encode
 
 
-def make_encoder_T(spec, graph: str = "orig"):
-    """Build ``encode_T(u: [B, k]) -> f32 [n, B]``: the transposed codeword.
-
-    Same GF(2) systematic encode as :func:`make_encoder` but emitting
-    codewords on the MINOR axis -- the layout the fused Monte-Carlo kernel
-    (ldpc_tpu.ops.mc_pallas) consumes directly, with the domain gather folded
-    into the generator so the whole encode is ONE MXU matmul.
-    """
-    k, n_minus_k = spec.P.shape
-    n = k + n_minus_k
-    dm = np.asarray(spec.domain_map(graph))
-    # w = u @ Gfull with Gfull[:, j] = e_{dm[j]} (info) or P[:, dm[j]-k]
-    Gfull = np.zeros((k, n), dtype=np.float32)
-    info_cols = dm < k
-    Gfull[dm[info_cols], np.nonzero(info_cols)[0]] = 1.0
-    Gfull[:, ~info_cols] = spec.P[:, dm[~info_cols] - k]
-    # bf16 inputs are exact for 0/1 and the MXU accumulates in f32, so the
-    # GF(2) sum (< 2^11 terms) is exact while the matmul runs at the MXU's
-    # native bf16 rate
-    GT = jnp.asarray(Gfull.T, jnp.bfloat16)  # [n, k]
-
-    def encode_T(u: jax.Array) -> jax.Array:
-        uT = u.astype(jnp.bfloat16).T  # [k, B]
-        x = jnp.dot(GT, uT, preferred_element_type=jnp.float32)
-        return jnp.mod(x, 2.0)
-
-    return encode_T
-
-
 def random_info_bits(key: jax.Array, batch: int, k: int) -> jax.Array:
     """Uniform random info bits [batch, k] as uint8 (generator.py:7-9 analogue).
 
     Bit-packed: one threefry word yields 32 bits (bernoulli would burn a
-    whole uint32 per bit -- the PRNG is a measurable share of the full
-    Monte-Carlo step, see STATUS.md perf notes).
+    whole uint32 per bit).
     """
     words = (k + 31) // 32
     raw = jax.random.bits(key, (batch, words), dtype=jnp.uint32)

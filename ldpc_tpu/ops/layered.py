@@ -40,16 +40,17 @@ from ldpc_tpu.ops.spa import (
     DecodeResult,
     _signs,
     exclusive_combine,
+    resolve_alpha_schedule,
 )
-from ldpc_tpu.ops.spa_pallas import resolve_alpha_schedule
 
 
-def _check_update_list(msgs, variant, alpha, beta):
-    """Leave-one-out check update over a static list of [..., Z] arrays.
+def check_update_list(msgs, variant, alpha, beta):
+    """Leave-one-out check update over a static list of equal-shape arrays.
 
-    Uses the shared ``exclusive_combine`` so float reductions associate in
-    the SAME order as the Pallas kernel's check update -- the precondition
-    for the bit-identity asserted in tests/test_layered.py.
+    Shared with the QC kernel (ldpc_tpu.ops.spa_pallas), so both evaluate
+    the same float expressions in the same association order
+    (``exclusive_combine``) -- the precondition for their bit-identity.
+    ``alpha`` may be a traced scalar (per-iteration schedules).
     """
     if variant == "spa":
         ts = [
@@ -180,7 +181,7 @@ def make_qc_layered_decoder(
                     roll(L[:, bj], s) - E[:, bi, j]
                     for j, (bj, s) in enumerate(slots)
                 ]
-                e_new = _check_update_list(msgs, variant, a_of(bi), beta)
+                e_new = check_update_list(msgs, variant, a_of(bi), beta)
                 dup = len({bj for bj, _ in slots}) < len(slots)
                 if dup:
                     # multi-diagonal layer (e.g. CCSDS '0+7'): a base row

@@ -3,7 +3,7 @@
 Re-designs the reference SPA (`python_ldpc_app/spa_decoder.py:63-280`) as a
 pure array program: messages live check-major in a dense padded tensor
 ``M[batch, m, dc]`` over the EdgeLayout compiled at code-load time, so every
-iteration is gathers + elementwise VPU math + reductions with static shapes.
+iteration is gathers + elementwise math + reductions with static shapes.
 A `lax.while_loop` with per-codeword masks provides syndrome early
 termination (spa_decoder.py:190-241) without dynamic shapes: converged
 codewords freeze their outputs while stragglers keep iterating, and the loop
@@ -49,6 +49,12 @@ TANH_IN_CLIP = 17.5
 PROD_CLIP_F64 = 0.99999999999999878
 PROD_CLIP_F32 = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 LLR_WINDOW = 7.0  # normalized-LLR confidence window (spa_decoder.py:218)
+# Variable degrees up to this sum their incoming messages left to right, the
+# QC kernel's order (the built-in QC codes' graphs have degrees up to 6).
+# Denser graphs, such as the systematic H_std of the reference fidelity
+# (degree 191 for WiMAX 576), take one reduction: there the unrolled chain
+# took 1.8x the reduction's time on an H100 and 31x on the CPU (PERF.md).
+SEQ_SUM_MAX_DV = 32
 
 
 class DecodeResult(NamedTuple):
@@ -65,7 +71,7 @@ def _prod_clip(dtype) -> float:
     The clip must survive a round-trip through ``dtype``: the f32 constant
     rounds to exactly 1.0 in bfloat16, which sends the 2*atanh log form to
     +inf and collapses the whole decode to NaN -> all-zero estimates that
-    pass the syndrome check (measured in examples/quantized_messages)."""
+    pass the syndrome check."""
     if dtype == jnp.float64:
         return PROD_CLIP_F64
     if dtype == jnp.bfloat16:
@@ -89,7 +95,7 @@ def _signs(x: jax.Array) -> jax.Array:
 def exclusive_combine(values, op):
     """Exclusive prefix/suffix combine of a static list (leave-one-out).
 
-    ``None`` marks the symbolic identity. Shared by the Pallas kernel and the
+    ``None`` marks the symbolic identity. Shared by the QC kernel and the
     jnp layered decoder so both evaluate float reductions in the SAME
     association order -- a precondition for bit-identical results.
     """
@@ -124,6 +130,41 @@ def check_degree_classes(layout):
     return np.asarray([lookup[int(d)] for d in deg], np.int32), degrees
 
 
+def resolve_alpha_schedule(alpha, variant, row_slots):
+    """Validate a per-iteration alpha schedule against a QC graph.
+
+    Returns ``(arr, class_of)``: ``arr`` is the float64 schedule ([T] or
+    [T, D]) or None for a trace-time-constant scalar; ``class_of[bi]`` maps
+    a base row to its column of a degree-specific [T, D] matrix (distinct
+    check degrees ascending -- the same order as
+    :func:`check_degree_classes`, so learned weights deploy to either decode
+    path unchanged). Shared by the XLA layered decoder and the QC kernel
+    (ldpc_tpu.ops.spa_pallas)."""
+    if np.ndim(alpha) == 0:
+        return None, None
+    if variant != "normalized_minsum":
+        raise ValueError(
+            "per-iteration alpha requires variant='normalized_minsum'"
+        )
+    arr = np.asarray(alpha, np.float64)
+    if arr.size == 0:
+        raise ValueError(
+            "alpha schedule is empty: need at least one per-iteration value"
+        )
+    if arr.ndim == 1:
+        return arr, None
+    if arr.ndim != 2:
+        raise ValueError("alpha schedule must be scalar, [T] or [T, D]")
+    degrees = sorted({len(r) for r in row_slots})
+    if arr.shape[1] != len(degrees):
+        raise ValueError(
+            f"alpha has {arr.shape[1]} degree classes but the graph has "
+            f"{len(degrees)} distinct check degrees {degrees}"
+        )
+    lookup = {d: i for i, d in enumerate(degrees)}
+    return arr, [lookup[len(r)] for r in row_slots]
+
+
 def minsum_excl_update(M: jax.Array, slot_valid: jax.Array, dtype):
     """Leave-one-out min-sum check update over the padded edge layout.
 
@@ -136,15 +177,12 @@ def minsum_excl_update(M: jax.Array, slot_valid: jax.Array, dtype):
     pad_mag = jnp.asarray(1e30, dtype)
     sgn = jnp.where(slot_valid, _signs(M), jnp.ones((), dtype))
     mag = jnp.where(slot_valid, jnp.abs(M), pad_mag)
-    # total sign via negative-count parity, NOT jnp.prod: a reduce-prod
-    # over the dc axis inside the decode loop SIGSEGVs the XLA:TPU
-    # compiler (observed on v5e; min/sum reductions are fine)
+    # total sign via negative-count parity: exact, and no multiply chain
     neg = jnp.sum((sgn < 0).astype(jnp.int32), axis=-1, keepdims=True)
     total_sign = (1 - 2 * (neg % 2)).astype(dtype)
     excl_sign = total_sign * sgn  # sign in {+-1}: division == multiplication
-    # two-min via value masks, not argmin+one_hot: the latter pattern
-    # inside the while-loop SIGSEGVs the XLA:TPU compiler (observed on
-    # v5e), and masks are cheaper anyway. Tie semantics are identical:
+    # two-min via value masks, not argmin+one_hot (masks are cheaper).
+    # Tie semantics are identical:
     # a duplicated minimum means every min slot's exclusive min is still
     # min1 (min2 == min1 from the other duplicate).
     min1 = jnp.min(mag, axis=-1, keepdims=True)
@@ -192,8 +230,7 @@ def make_decoder(
     useful for benchmarking steady-state iteration cost).
     ``quantize_msgs``: optional elementwise fn applied to the var->check
     messages at the start of every iteration -- the hook for message
-    precision studies (bf16 rounding, int8 min-sum grids); see
-    examples/quantized_messages.
+    precision studies (bf16 rounding, int8 min-sum grids).
     """
     variant = variant.lower().replace("-", "_")
     if variant in ("bitflipping", "bit_flipping"):
@@ -201,7 +238,7 @@ def make_decoder(
     if rule not in ("exact", "legacy"):
         raise ValueError(f"Unknown check-node rule: {rule}")
 
-    n, m, dc = layout.n, layout.m, layout.dc
+    n, m, dc, dv = layout.n, layout.m, layout.dc, layout.dv
     chk_var = jnp.asarray(layout.chk_var)  # [m, dc] pad = n
     var_edge = jnp.asarray(layout.var_edge)  # [n, dv] pad = m*dc
     slot_valid = jnp.asarray(layout.chk_var < layout.n)  # [m, dc]
@@ -240,8 +277,8 @@ def make_decoder(
             t = jnp.where(slot_valid, t, jnp.ones((), dtype))
             prod = _exclusive_prod(t)
             prod = jnp.clip(prod, -prod_clip, prod_clip)
-            # 2*atanh(p) in log form -- same expression as the Pallas kernel
-            # (Mosaic has no atanh primitive), so both paths agree bit-for-bit
+            # 2*atanh(p) in log form -- the same expression as the QC kernel
+            # (ldpc_tpu.ops.spa_pallas) and the XLA layered decoder
             return jnp.log((1.0 + prod) / (1.0 - prod))
         excl_sign, excl_min = minsum_excl_update(M, slot_valid, dtype)
         if variant == "normalized_minsum":
@@ -308,7 +345,16 @@ def make_decoder(
             # posterior: L = llr + sum of incoming E per variable
             E_flat = E.reshape(B, m * dc)
             E_flat = jnp.pad(E_flat, ((0, 0), (0, 1)))  # sentinel edge -> 0
-            L = llr + jnp.sum(jnp.take(E_flat, var_edge, axis=1), axis=-1)
+            E_in = jnp.take(E_flat, var_edge, axis=1)  # [B, n, dv]
+            if dv <= SEQ_SUM_MAX_DV:
+                # summed left to right from llr in var_edge order (ascending
+                # check index): the association of the QC kernel, so the
+                # two agree bit for bit on every backend
+                L = llr
+                for j in range(dv):
+                    L = L + E_in[..., j]
+            else:  # dense graphs: one reduction
+                L = llr + jnp.sum(E_in, axis=-1)
 
             if rule == "exact":
                 est_bit = (L < 0).astype(jnp.uint8)  # log(p0/p1) < 0 <=> bit 1

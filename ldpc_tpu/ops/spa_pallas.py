@@ -1,626 +1,119 @@
-"""Fused quasi-cyclic SPA/min-sum decoder as a Pallas TPU kernel.
+"""Quasi-cyclic SPA/min-sum decoder as a Pallas kernel for the GPU.
 
-Design (TPU-first, no gathers):
+Route: Pallas with ``backend="triton"``. One program owns a tile of ``TB``
+codewords and runs their whole decode -- every iteration, every layer, the
+syndrome check and the early exit -- so a tile stops as soon as its own
+codewords pass the syndrome, instead of waiting for the whole batch as the
+XLA decoders (ldpc_tpu.ops.spa, ldpc_tpu.ops.layered) do.
 
-* The Tanner-graph message permutation of a QC code factorizes into STATIC
-  cyclic rolls along the lift dimension Z (ldpc_tpu.models.qc). Mosaic has no
-  general gather, but static rolls lower to sublane shifts -- so the whole
-  flooding iteration becomes elementwise VPU math.
-* Layout: codewords are the LANE dimension (tile of ``tile_b`` lanes), the
-  lift dimension Z is the sublane dimension. Extrinsics live in VMEM scratch
-  ``E[mb, dc_b, Z, tile_b]`` for the entire decode: per iteration the only
-  HBM traffic is zero -- channel LLRs are read once per tile and hard
-  decisions written once.
-* Var->check messages are never stored: both schedules recompute them as
-  ``roll(L) - E`` (the variable-node update in exact float arithmetic), so
-  the flooding schedule needs no M scratch -- that halves resident VMEM and
-  lets every QC code in the database fit a 128-lane tile (qc_vmem_bytes).
-* The grid runs over batch tiles; each tile iterates its own
-  ``lax.while_loop`` with per-codeword convergence masks and exits as soon as
-  all of ITS codewords pass the syndrome check -- finer-grained early
-  termination than whole-batch exit.
-* Check-node updates use exclusive prefix/suffix combines (product of tanh
-  for 'spa', min+sign for the min-sum family) with exactly the same clipping
-  constants as the XLA reference decoder (ldpc_tpu.ops.spa), so the two
-  decoders agree bit-for-bit in float32.
-* Layers with multi-diagonal blocks (a base row touching one base column at
-  two shifts, e.g. CCSDS '0+7') use the ADDITIVE posterior form
-  ``L += roll(E_new - E_old)`` so both circulants' extrinsic deltas
-  accumulate; single-diagonal layers keep the overwrite form (the two are
-  algebraically identical there, and overwrite preserves round-1 bit
-  patterns). The reference has no layered schedule at all
-  (spa_decoder.py:63 implements flooding only).
+Layout. Codewords are the minor axis. Channel LLRs, posteriors ``L`` and
+extrinsics ``E`` live in device memory in a padded block layout
+``[blocks, Zp, B]``: block ``j`` holds the ``Z`` rows of base column ``j``
+(of base edge slot ``j`` for ``E``), padded to ``Zp``, the next power of two
+(Triton block shapes are powers of two). Padding rows are masked out of
+every load and store. A program's slice of ``L`` (``nb * Zp * TB * 4``
+bytes) stays resident in L1/L2; ``E`` streams once per iteration.
+
+Rolls. The QC message permutation factorizes into cyclic shifts of
+``Z``-row circulants. Row ``z`` of ``roll(L[j], s)`` is row ``(z + s) % Z``
+of ``L[j]``: a row-permuted load of contiguous ``TB``-float runs, so it
+stays coalesced. The inverse roll is the same permutation applied to the
+store. Rows written by other threads of the program are read only after a
+barrier (``debug_barrier``); the interpreter runs a program sequentially,
+so there the barrier is a no-op.
+
+Arithmetic. The check update is ops.layered's own (``check_update_list``:
+exclusive prefix/suffix combines, the reference's clipping constants), and
+the update forms are the same (overwrite
+``L := roll_inv(m + E')`` for single-diagonal layers, additive deltas for
+multi-diagonal ones such as CCSDS '0+7'). Min-sum variants therefore agree
+with ``ops.layered`` bit for bit; SPA's tanh and log lower through libdevice
+here and through XLA's own approximations there, so SPA agrees only to the
+last bits.
 
 The kernel implements the 'exact' check-node rule (input LLRs are negated
-into the log(p0/p1) domain outside); the 'legacy' reference-parity rule stays
-on the XLA path where bit-level compatibility matters more than speed.
+into the log(p0/p1) domain outside); the reference's 'legacy' rule stays on
+the XLA path.
 """
 
 from __future__ import annotations
 
-import functools
+from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ldpc_tpu.models.qc import QCLayout
-from ldpc_tpu.ops.spa import (
-    LLR_WINDOW,
-    PROD_CLIP_F32,
-    TANH_IN_CLIP,
-    DecodeResult,
-    exclusive_combine,
-)
+from ldpc_tpu.ops.layered import check_update_list
+from ldpc_tpu.ops.spa import LLR_WINDOW, DecodeResult, resolve_alpha_schedule
+
+VARIANTS = ("spa", "minsum", "normalized_minsum", "offset_minsum")
+
+# Codewords per program. Row degrees of at least WIDE_ROW_DC run 16 warps,
+# narrower rows 8. On an H100, layered SPA-12 decode alone per batch of
+# 4096 (PERF.md): WiMAX (1152, 576), degree 7, best at 8x8; the n=9216
+# Z=384 lift, degree 7, 8x8 59.1 ms against 8x16 78.3 and 8x32 95.4; WiMAX
+# (2304, rate 5/6), degree 20, 8x16 5.3 ms against 8x8 6.8 and 16x8 10.0.
+# Degrees 8-19 were not measured; the boundary splits the difference.
+TILE_B = 8
+WIDE_ROW_DC = 14
 
 
-def _roll0(x: jax.Array, s: int, Z: int) -> jax.Array:
-    """y[r] = x[(r + s) % Z] along axis 0, static shift."""
-    s = s % Z
-    if s == 0:
-        return x
-    return jnp.concatenate([x[s:], x[:s]], axis=0)
+def next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
-_exclusive_combine = exclusive_combine
+@dataclass(frozen=True)
+class TilePlan:
+    tile_b: int  # codewords per program (power of two)
+    num_warps: int
 
 
-def resolve_alpha_schedule(alpha, variant, row_slots):
-    """Validate a per-iteration alpha schedule against the QC graph.
-
-    Returns ``(arr, class_of)``: ``arr`` is the float64 schedule ([T] or
-    [T, D]) or None for a trace-time-constant scalar; ``class_of[bi]`` maps
-    a base row to its column of a degree-specific [T, D] matrix (distinct
-    check degrees ascending -- the same order as
-    ldpc_tpu.ops.spa.check_degree_classes, so learned weights deploy to
-    either decode path unchanged). Shared by the standalone QC kernel, the
-    fused Monte-Carlo kernel, and the XLA layered decoder."""
-    if np.ndim(alpha) == 0:
-        return None, None
-    if variant != "normalized_minsum":
-        raise ValueError(
-            "per-iteration alpha requires variant='normalized_minsum'"
-        )
-    arr = np.asarray(alpha, np.float64)
-    if arr.size == 0:
-        raise ValueError(
-            "alpha schedule is empty: need at least one per-iteration value"
-        )
-    if arr.ndim == 1:
-        return arr, None
-    if arr.ndim != 2:
-        raise ValueError("alpha schedule must be scalar, [T] or [T, D]")
-    degrees = sorted({len(r) for r in row_slots})
-    if arr.shape[1] != len(degrees):
-        raise ValueError(
-            f"alpha has {arr.shape[1]} degree classes but the graph has "
-            f"{len(degrees)} distinct check degrees {degrees}"
-        )
-    lookup = {d: i for i, d in enumerate(degrees)}
-    return arr, [lookup[len(r)] for r in row_slots]
-
-
-_resolve_alpha_schedule = resolve_alpha_schedule  # backward-compat alias
-
-# int8 message grid for msg_store='int8': uniform 256 levels on [-24, 24]
-# (the FER-free grid from the message-precision study,
-# examples/quantized_messages -- min-sum magnitudes above 24 carry no
-# decision information at these clip settings)
-E_INT8_CLIP = 24.0
-E_INT8_SCALE = E_INT8_CLIP / 127.0
+def pick_tile(qc: QCLayout) -> TilePlan:
+    """The kernel's tile for ``qc`` on the card (see :data:`WIDE_ROW_DC`)."""
+    dc = max((len(r) for r in qc.row_slots()), default=1)
+    return TilePlan(TILE_B, 16 if dc >= WIDE_ROW_DC else 8)
 
 
 def _sched_at(vec: np.ndarray, it):
-    """``vec[min(it, T-1)]`` as a traced f32 scalar via a select chain.
-
-    Mosaic-friendly (no 1-D vector gather in-kernel); the clamp-to-last
-    default matches the XLA decoder's ``alpha_seq[min(it, T-1)]``."""
+    """``vec[min(it, T-1)]`` as a traced f32 scalar via a select chain (the
+    clamp-to-last default matches the XLA decoders' ``alpha[min(it, T-1)]``)."""
     a = jnp.float32(vec[-1])
     for t in range(len(vec) - 1):
         a = jnp.where(it == t, jnp.float32(vec[t]), a)
     return a
 
 
-def make_check_update(variant: str, alpha: float, beta: float):
-    """Leave-one-out check update over a static list of [Z, TB] arrays.
+def check_layer_groups(layer_groups, schedule: str, row_slots, mb: int):
+    """Validate paired layer groups; None means the serial order 0..mb-1.
 
-    Shared by the standalone decode kernel and the fused Monte-Carlo kernel
-    (ldpc_tpu.ops.mc_pallas); float reductions associate in the same order as
-    the XLA/jnp decoders (exclusive_combine), the precondition for the
-    bit-identity asserted in tests/test_pallas.py.
-
-    ``check_update(msgs, a_t=None)``: ``a_t`` (traced f32 scalar) overrides
-    the trace-time-constant normalized-min-sum weight -- per-iteration /
-    per-degree schedules (see make_decode_loop)."""
-
-    def check_update(msgs, a_t=None):
-        if variant == "spa":
-            ts = [
-                jnp.clip(
-                    jnp.tanh(jnp.clip(m * 0.5, -TANH_IN_CLIP, TANH_IN_CLIP)),
-                    -PROD_CLIP_F32,
-                    PROD_CLIP_F32,
-                )
-                for m in msgs
-            ]
-            excl = _exclusive_combine(ts, lambda a, b: a * b)
-
-            def atanh2(p):
-                if p is None:
-                    p = jnp.ones_like(msgs[0])
-                p = jnp.clip(p, -PROD_CLIP_F32, PROD_CLIP_F32)
-                return jnp.log((1.0 + p) / (1.0 - p))  # 2*atanh, Mosaic-safe
-
-            return [atanh2(p) for p in excl]
-        # min-sum family
-        sgns = [jnp.where(m < 0, -1.0, 1.0).astype(jnp.float32) for m in msgs]
-        mags = [jnp.abs(m) for m in msgs]
-        excl_sgn = _exclusive_combine(sgns, lambda a, b: a * b)
-        excl_mag = _exclusive_combine(mags, jnp.minimum)
-        out = []
-        for sg, mg in zip(excl_sgn, excl_mag):
-            sg = jnp.ones_like(msgs[0]) if sg is None else sg
-            mg = jnp.full_like(msgs[0], 1e30) if mg is None else mg
-            if variant == "normalized_minsum":
-                mg = (alpha if a_t is None else a_t) * mg
-            elif variant == "offset_minsum":
-                mg = jnp.maximum(mg - beta, 0.0)
-            out.append(sg * mg)
-        return out
-
-    return check_update
-
-
-def make_decode_loop(
-    qc: QCLayout,
-    max_iterations: int,
-    variant: str,
-    *,
-    alpha: float = 0.75,
-    beta: float = 0.15,
-    tile_b: int = 128,
-    schedule: str = "flooding",
-    k: int = 1,
-    track_norm: bool = True,
-    msg_store: str = "f32",
-    layer_groups: list[list[int]] | None = None,
-    check_every: int = 1,
-    sublane_groups: int = 1,
-):
-    """Build the in-kernel decode loop shared by the standalone decoder and
-    the fused Monte-Carlo kernel.
-
-    Returns ``run(llr_blk, mask_blk, E_ref, L_ref, prior_ref)`` where
-    ``llr_blk(j) -> [Z, TB]`` reads base column j of the channel LLRs (in the
-    log(p0/p1) domain) and ``mask_blk(j) -> [Z, 1]`` reads the info-bit mask.
-    On return, ``L_ref[j]`` holds the final posteriors (frozen at each lane's
-    convergence) and the result is ``(done_f, conv, norm, it)`` with shapes
-    f32/int32/f32 [1, TB] and a scalar iteration count.
-
-    ``track_norm=False`` elides the normalized-LLR bookkeeping -- the
-    per-iteration flip scan over every base column AND the ``prior`` VMEM
-    scratch (callers pass ``prior_ref=None``). The returned ``norm`` is
-    zeros; est/ok/conv are unchanged (tests/test_pallas.py asserts identity).
-    The simulation runner requests it only when ``--normalized-llr`` is off,
-    matching the reference, which computes the metric only when its settings
-    flag is set (spa_decoder.py:206-228).
-
-    ``layer_groups`` (layered schedule only): groups of 1-2 base-row
-    indices with pairwise-disjoint base-column support
-    (models.qc.paired_layer_groups). Rows in one group share no posteriors,
-    so hoisting both rows' message reads before either row's updates is
-    arithmetic-identical to processing them serially in the flattened group
-    order -- but it hands Mosaic two independent dependence chains per step
-    to interleave on the 4-wide ALUs. ``None`` keeps the natural serial
-    order 0..mb-1. Note the flattened order IS the schedule: a grouping
-    whose flattened order differs from 0..mb-1 produces (validly) different
-    decode trajectories than the default, like any serial-C row reordering.
-
-    ``check_every=N`` runs N message-passing sweeps per syndrome check
-    (the syndrome is ~14% of a layered iteration's ops at WiMAX R1/2 --
-    analysis.roofline.decode_census). Convergence detection and freezing
-    then happen at N-sweep granularity: ``conv`` reports the CHECK
-    iteration (up to N-1 later than the true convergence sweep), lanes
-    keep updating between checks (no mid-window freeze), and tiles exit at
-    window boundaries -- so counters are NOT bit-identical to
-    ``check_every=1``; FER agreement is statistical (a converged frame
-    re-passing the syndrome N-1 sweeps later is the overwhelmingly common
-    case). Requires ``max_iterations % N == 0`` and ``track_norm=False``
-    (the flip metric is defined per iteration).
-
-    ``msg_store='int8'`` (min-sum family only) stores the extrinsic scratch
-    E as int8 on a uniform [-E_INT8_CLIP, E_INT8_CLIP] grid -- the
-    check->var message is quantized on write and dequantized on read, so L
-    and E stay mutually consistent (roll(L) - E reproduces the var->check
-    messages exactly). 3-4x smaller E scratch depending on Z's int8
-    sublane padding; FER cost none (examples/quantized_messages), speed
-    cost measured there too -- this kernel is VPU-issue-bound, so the
-    extra quantize/dequantize ops make it a capacity knob, not a speed
-    knob.
-
-    ``sublane_groups=G`` (G > 1) stacks G INDEPENDENT codeword groups into
-    the sublane dimension: every per-base-column array becomes [G*Z, TB]
-    (group g in rows [g*Z, (g+1)*Z)) and one kernel tile decodes G*TB
-    codewords. This is the small-Z utilization lever (VERDICT round 4,
-    weak #2): a Z=4 code's [4, 128] arrays leave half of every (8, 128)
-    vector register empty and give Mosaic ~1-vreg ops whose ALU latency
-    cannot be hidden; at G*Z in [64, 128] the same dependence chain moves
-    8-16 vregs per op, amortizing both. The arithmetic per codeword is
-    UNCHANGED -- every op is elementwise except the cyclic rolls, which
-    become block-diagonal grouped rolls (two full rolls + one static-mask
-    select, so each group still sees exactly its own Z-block rotated), and
-    the per-tile syndrome reduction, which becomes a log2(Z)-step
-    rotate-OR within each block -- so est/ok/conv are bit-identical to
-    G=1 (tests/test_sublane_groups.py). What changes is tile-exit
-    granularity: one tile now waits for all G*TB of its codewords, and
-    ``it`` counts that coupled trip count. Requires ``track_norm=False``
-    (the flip metric's within-block sum has no exact rotate-reduce for
-    non-power-of-2 Z) -- callers fall back to G=1 when tracking it.
-    """
-    Z, nb, mb = qc.Z, qc.nb, qc.mb
-    G = int(sublane_groups)
-    if G < 1:
-        raise ValueError(f"sublane_groups must be >= 1: {G}")
-    if G > 1 and track_norm:
-        raise ValueError(
-            "sublane_groups > 1 requires track_norm=False: the "
-            "normalized-LLR flip sum has no exact within-block "
-            "rotate-reduce for non-power-of-2 Z"
-        )
-    GZ = G * Z
-    row_slots = qc.row_slots()
-    col_slots = qc.col_slots()
-    # alpha may be a [T] / [T, D] normalized-min-sum schedule (learned
-    # weights, ldpc_tpu.analysis.learned_minsum); resolved per iteration as
-    # a scalar select chain so the kernel stays static-shape
-    alpha_arr, alpha_class = _resolve_alpha_schedule(alpha, variant, row_slots)
-    check_update = make_check_update(
-        variant, alpha if alpha_arr is None else 1.0, beta
-    )
-    TB = tile_b
-    # mask/carry shape: per-lane at G=1 (the original layout), per
-    # (group, lane) -- block-broadcast over each group's Z rows -- at G>1
-    MS = (1, TB) if G == 1 else (GZ, TB)
-
-    if G == 1:
-        def groll(x, s):
-            return _roll0(x, s, Z)
-    else:
-        def _row_in_block(tb: int) -> jax.Array:
-            # computed in-trace (a pallas kernel cannot capture array
-            # constants); XLA/Mosaic CSE identical iota+mod expressions
-            return jax.lax.broadcasted_iota(jnp.int32, (GZ, tb), 0) % Z
-
-        def groll(x, s):
-            """Block-diagonal roll: y[g*Z+r] = x[g*Z + (r+s) % Z].
-
-            Two full-height static rolls + a static sublane-mask select:
-            rows that would wrap across a group boundary under the plain
-            roll take the second roll (shifted back one block) instead."""
-            s = s % Z
-            if s == 0:
-                return x
-            a = jnp.concatenate([x[s:], x[:s]], axis=0)
-            b_shift = GZ - (Z - s)
-            b = jnp.concatenate([x[b_shift:], x[:b_shift]], axis=0)
-            return jnp.where(_row_in_block(x.shape[1]) < (Z - s), a, b)
+    Rows of one group share no base column, so the kernel needs no barrier
+    between them: one barrier per group instead of one per row."""
     if layer_groups is None:
-        groups = [[bi] for bi in range(mb)]
-    else:
-        if schedule != "layered":
-            raise ValueError("layer_groups requires schedule='layered'")
-        flat = sorted(bi for g in layer_groups for bi in g)
-        if flat != list(range(mb)):
-            raise ValueError(
-                f"layer_groups must partition base rows 0..{mb - 1}: "
-                f"{layer_groups!r}"
-            )
-        for g in layer_groups:
-            if len(g) > 1:
-                seen: set[int] = set()
-                for bi in g:
-                    bjs = {bj for bj, _ in row_slots[bi]}
-                    if seen & bjs:
-                        raise ValueError(
-                            f"layer group {g} rows share base columns "
-                            f"{sorted(seen & bjs)} -- grouped rows must be "
-                            "disjoint for serial-order equivalence"
-                        )
-                    seen |= bjs
-        groups = [list(g) for g in layer_groups]
-    if check_every < 1:
-        raise ValueError(f"check_every must be >= 1: {check_every}")
-    if check_every > 1:
-        if max_iterations % check_every:
-            raise ValueError(
-                f"check_every={check_every} must divide "
-                f"max_iterations={max_iterations}"
-            )
-        if track_norm:
-            raise ValueError(
-                "check_every > 1 requires track_norm=False: the "
-                "normalized-LLR flip metric is defined per iteration"
-            )
-    if msg_store not in ("f32", "int8"):
-        raise ValueError(f"msg_store must be 'f32' or 'int8': {msg_store!r}")
-    int8_e = msg_store == "int8"
-    if int8_e and variant == "spa":
+        return [[bi] for bi in range(mb)]
+    if schedule != "layered":
+        raise ValueError("layer_groups requires schedule='layered'")
+    flat = sorted(bi for g in layer_groups for bi in g)
+    if flat != list(range(mb)):
         raise ValueError(
-            "msg_store='int8' requires a min-sum variant: the SPA tanh rule "
-            "loses FER under message quantization (examples/quantized_messages)"
+            f"layer_groups must partition base rows 0..{mb - 1}: "
+            f"{layer_groups!r}"
         )
-
-    # the E scratch is FLATTENED over (row, slot): [edge_slots, GZ, TB]
-    # with static per-row offsets, not [mb, dcb, GZ, TB] -- padding every
-    # row to the max degree wasted (mb*dcb - edges)/mb*dcb of the largest
-    # scratch buffer (~17% on the 802.16e base graph; the margin that let
-    # the n=9216 int8-E kernel compile at all). Offsets exposed to the
-    # kernel builders via :func:`e_slot_count`.
-    _row_off = [0]
-    for r in row_slots:
-        _row_off.append(_row_off[-1] + len(r))
-
-    def E_read(E_ref, bi, slot):
-        v = E_ref[_row_off[bi] + slot]
-        return v.astype(jnp.float32) * E_INT8_SCALE if int8_e else v
-
-    def E_quantize(val):
-        """f32 -> the exact f32 value the int8 store will reproduce."""
-        if not int8_e:
-            return val
-        q = jnp.round(
-            jnp.clip(val, -E_INT8_CLIP, E_INT8_CLIP) * (1.0 / E_INT8_SCALE)
-        )
-        return q * E_INT8_SCALE
-
-    def E_write(E_ref, bi, slot, val, active):
-        """Store an E_quantize'd value, freezing converged lanes."""
-        s = _row_off[bi] + slot
-        if int8_e:
-            q = jnp.round(val * (1.0 / E_INT8_SCALE)).astype(jnp.int8)
-            E_ref[s] = jnp.where(active, q, E_ref[s])
-        else:
-            E_ref[s] = jnp.where(active, val, E_ref[s])
-
-    def alpha_of(it):
-        """bi -> traced alpha scalar for iteration ``it`` (None = constant)."""
-        if alpha_arr is None:
-            return lambda bi: None
-        if alpha_arr.ndim == 1:
-            a = _sched_at(alpha_arr, it)
-            return lambda bi: a
-        cols = [
-            _sched_at(alpha_arr[:, c], it) for c in range(alpha_arr.shape[1])
-        ]
-        return lambda bi: cols[alpha_class[bi]]
-
-    def syndrome(L_of):
-        """any_unsat [MS] from posterior signs (exact rule: bit = L < 0).
-
-        G=1: per-lane any over sublanes, as always. G>1: parities
-        accumulate full-shape, then a log2(Z)-step rotate-OR within each
-        Z-block broadcasts every group's 'any unsat' to all its rows --
-        OR is idempotent, so the doubling windows may overlap/wrap."""
-        any_unsat = jnp.zeros(MS, jnp.bool_)
-        for bi in range(mb):
-            parity = None
-            for bj, s in row_slots[bi]:
-                bit = groll(L_of(bj), s) < 0
-                parity = bit if parity is None else parity ^ bit
-            if parity is None:
-                continue  # empty base row: trivially satisfied
-            if G == 1:
-                any_unsat = any_unsat | jnp.any(parity, axis=0, keepdims=True)
-            else:
-                any_unsat = any_unsat | parity
-        if G > 1:
-            # rotate-reduce in f32: Mosaic cannot lower the grouped roll's
-            # select on i1 vectors ("unsupported target bitwidth"); max is
-            # the same idempotent OR on {0, 1} floats
-            u = any_unsat.astype(jnp.float32)
-            sh = 1
-            while sh < Z:
-                u = jnp.maximum(u, groll(u, sh))
-                sh *= 2
-            any_unsat = u > 0.5
-        return any_unsat
-
-    def norm_and_freeze(L_ref, prior_ref, mask_blk, active, ok_now, carry):
-        """Normalized-LLR bookkeeping + convergence accounting (shared tail).
-
-        L is frozen for converged lanes by construction (their E stopped
-        updating), so est needs no in-loop copy -- callers read it from L
-        after the loop."""
-        it, done_f, conv, norm = carry
-        if track_norm:
-            flips = jnp.zeros((1, TB), jnp.float32)
-            for bj in range(nb):
-                L = L_ref[bj]
-                f = (jnp.abs(L) <= LLR_WINDOW) & (prior_ref[bj] * L < 0)
-                flips = flips + jnp.sum(
-                    f.astype(jnp.float32) * mask_blk(bj), axis=0, keepdims=True
+    for g in layer_groups:
+        seen: set[int] = set()
+        for bi in g:
+            bjs = {bj for bj, _ in row_slots[bi]}
+            if seen & bjs:
+                raise ValueError(
+                    f"layer group {g} rows share base columns "
+                    f"{sorted(seen & bjs)} -- grouped rows must be disjoint "
+                    "for serial-order equivalence"
                 )
-                prior_ref[bj] = L  # frozen lanes: L (so prior) unchanged
-            norm = jnp.where(active, flips / max(k, 1), norm)
-        # conv reports the CHECK iteration: the sweep index of the window's
-        # last sweep (== the true convergence iteration at check_every=1)
-        conv = jnp.where(active & ok_now, it + (check_every - 1), conv)
-        done_f = jnp.maximum(done_f, ok_now.astype(jnp.float32))
-        return (it + check_every, done_f, conv, norm)
-
-    def sweep_flooding(llr_blk, E_ref, L_ref, it, active):
-        a_of = alpha_of(it)
-
-        # ---- check-node update: messages recomputed as roll(L) - E ----
-        for bi in range(mb):
-            slots = row_slots[bi]
-            msgs = [
-                groll(L_ref[bj], s) - E_read(E_ref, bi, slot)
-                for slot, (bj, s) in enumerate(slots)
-            ]
-            for slot, e in enumerate(check_update(msgs, a_of(bi))):
-                E_write(E_ref, bi, slot, E_quantize(e), active)
-
-        # ---- posterior per base column ----
-        for bj in range(nb):
-            acc = llr_blk(bj)
-            for bi, slot, s in col_slots[bj]:
-                acc = acc + groll(E_read(E_ref, bi, slot), -s)
-            L_ref[bj] = acc
-
-    def body_flooding(llr_blk, mask_blk, E_ref, L_ref, prior_ref, carry):
-        it, done_f, conv, norm = carry
-        active = done_f < 0.5  # bool [1, TB], True while undecoded
-        for step in range(check_every):
-            sweep_flooding(llr_blk, E_ref, L_ref, it + step, active)
-
-        ok_now = ~syndrome(lambda bj: L_ref[bj])
-        return norm_and_freeze(
-            L_ref, prior_ref, mask_blk, active, ok_now,
-            (it, done_f, conv, norm),
-        )
-
-    def sweep_layered(E_ref, L_ref, it, active):
-        a_of = alpha_of(it)
-
-        # ---- one serial sweep over base-row layers ----
-        # ``groups`` holds 1-2 rows of disjoint base-column support per
-        # step: hoisting every grouped row's message reads before any
-        # row's updates is arithmetic-identical to the flattened serial
-        # order (no shared posteriors), but exposes the rows' dependence
-        # chains to the scheduler as independent streams.
-        for group in groups:
-            read = []
-            for bi in group:
-                slots = row_slots[bi]
-                msgs = [
-                    groll(L_ref[bj], s) - E_read(E_ref, bi, slot)
-                    for slot, (bj, s) in enumerate(slots)
-                ]
-                read.append((bi, slots, msgs))
-            for bi, slots, msgs in read:
-                e_new = [E_quantize(e) for e in check_update(msgs, a_of(bi))]
-                dup = len({bj for bj, _ in slots}) < len(slots)
-                if dup:
-                    # multi-diagonal layer: both circulants of a doubled
-                    # block feed the same base column -- accumulate
-                    # extrinsic deltas
-                    deltas: dict[int, jax.Array] = {}
-                    for slot, (bj, s) in enumerate(slots):
-                        d = groll(
-                            e_new[slot] - E_read(E_ref, bi, slot), -s
-                        )
-                        deltas[bj] = d if bj not in deltas else deltas[bj] + d
-                    for bj, d in deltas.items():
-                        L_ref[bj] = jnp.where(active, L_ref[bj] + d, L_ref[bj])
-                else:
-                    for slot, (bj, s) in enumerate(slots):
-                        l_new = groll(msgs[slot] + e_new[slot], -s)
-                        L_ref[bj] = jnp.where(active, l_new, L_ref[bj])
-                for slot in range(len(slots)):
-                    E_write(E_ref, bi, slot, e_new[slot], active)
-
-    def body_layered(llr_blk, mask_blk, E_ref, L_ref, prior_ref, carry):
-        it, done_f, conv, norm = carry
-        active = done_f < 0.5
-        for step in range(check_every):
-            sweep_layered(E_ref, L_ref, it + step, active)
-
-        ok_now = ~syndrome(lambda bj: L_ref[bj])
-        return norm_and_freeze(
-            L_ref, prior_ref, mask_blk, active, ok_now,
-            (it, done_f, conv, norm),
-        )
-
-    body_fn = body_flooding if schedule == "flooding" else body_layered
-
-    def run(llr_blk, mask_blk, E_ref, L_ref, prior_ref, skip_f=None):
-        # init: posterior = channel LLRs, extrinsics = 0
-        for bj in range(nb):
-            L_ref[bj] = llr_blk(bj)
-            if track_norm:
-                prior_ref[bj] = llr_blk(bj)
-        e_zero = jnp.zeros((GZ, TB), jnp.int8 if int8_e else jnp.float32)
-        for s in range(_row_off[-1]):
-            E_ref[s] = e_zero
-
-        def body(carry):
-            # carries are f32/int32 vectors: Mosaic's while-loop layout
-            # inference rejects i1 vector carries
-            return body_fn(llr_blk, mask_blk, E_ref, L_ref, prior_ref, carry)
-
-        def cond(carry):
-            it, done_f, _, _ = carry
-            return (it < max_iterations) & (jnp.min(done_f) < 0.5)
-
-        # ``skip_f`` (f32 scalar, 0/1): 1 pre-marks every lane done, so the
-        # while loop exits before iteration 0 -- a vmapped SNR sweep stops
-        # paying for points that reached their error quota (the caller
-        # discards a skipped tile's outputs)
-        done0 = (
-            jnp.zeros(MS, jnp.float32) if skip_f is None
-            else jnp.broadcast_to(skip_f, MS).astype(jnp.float32)
-        )
-        init = (
-            jnp.int32(0),
-            done0,
-            jnp.full(MS, -1, jnp.int32),
-            jnp.zeros(MS, jnp.float32),
-        )
-        return jax.lax.while_loop(cond, body, init)
-
-    return run
-
-
-def e_slot_count(qc: QCLayout) -> int:
-    """Rows of the FLATTENED extrinsic scratch: one [G*Z, TB] slab per
-    base edge slot (sum of row degrees), not mb*dcb -- the decode loop
-    indexes E by static per-row offsets (make_decode_loop)."""
-    return sum(len(r) for r in qc.row_slots())
-
-
-def stack_groups(xT: jax.Array, Z: int, G: int, tile_b: int) -> jax.Array:
-    """[n, B] -> [n*G, B//G] grouped-sublane layout (B % (G*tile_b) == 0).
-
-    Row bj*G*Z + g*Z + z, column t*tile_b + l holds element
-    (row bj*Z + z, codeword t*G*tile_b + g*tile_b + l) of the input: one
-    kernel tile t then reads G stacked Z-blocks per base column, each a
-    different tile_b-lane codeword group. Pure XLA reshape/transpose,
-    executed once per dispatch (not per iteration)."""
-    n, B = xT.shape
-    nb = n // Z
-    T = B // (G * tile_b)
-    x = xT.reshape(nb, Z, T, G, tile_b)
-    x = x.transpose(0, 3, 1, 2, 4)  # [nb, G, Z, T, tile_b]
-    return x.reshape(n * G, T * tile_b)
-
-
-def unstack_groups(yT: jax.Array, Z: int, G: int, tile_b: int) -> jax.Array:
-    """Inverse of :func:`stack_groups`: [n*G, B//G] -> [n, B]."""
-    nG, BT = yT.shape
-    n = nG // G
-    nb = n // Z
-    T = BT // tile_b
-    y = yT.reshape(nb, G, Z, T, tile_b)
-    y = y.transpose(0, 2, 3, 1, 4)  # [nb, Z, T, G, tile_b]
-    return y.reshape(n, T * G * tile_b)
-
-
-def ungroup_rows(y: jax.Array, Z: int, G: int, tile_b: int,
-                 reduce: str | None = None) -> jax.Array:
-    """Per-(group, lane) kernel row output [G*Z, B//G] -> per-codeword [B].
-
-    ``reduce=None`` takes each block's row 0 (block-uniform outputs: ok,
-    conv); ``reduce='sum'`` sums each block's Z rows (partial counters:
-    the kernel's within-block sums move to XLA because a non-power-of-2 Z
-    has no exact in-kernel rotate-reduce for addition)."""
-    GZ, BT = y.shape
-    T = BT // tile_b
-    yy = y.reshape(G, Z, T, tile_b)
-    v = yy.sum(axis=1) if reduce == "sum" else yy[:, 0]
-    return v.transpose(1, 0, 2).reshape(T * G * tile_b)
+            seen |= bjs
+    return [list(g) for g in layer_groups]
 
 
 def make_qc_decoder(
@@ -631,207 +124,331 @@ def make_qc_decoder(
     *,
     alpha: float = 0.75,
     beta: float = 0.15,
-    tile_b: int = 128,
-    interpret: bool = False,
     schedule: str = "flooding",
     track_norm: bool = True,
-    msg_store: str = "f32",
     layer_groups: list[list[int]] | None = None,
-    check_every: int = 1,
-    sublane_groups: int = 1,
+    tile_b: int | None = None,
+    interpret: bool = False,
+    mesh: jax.sharding.Mesh | None = None,
+    batch_axes: tuple[str, ...] = (),
 ):
-    """Build ``decode(llr: f32 [B, n]) -> DecodeResult`` for a QC code.
+    """Build ``decode(llr: f32 [B, n], skip=None) -> DecodeResult``.
 
-    ``llr`` follows the channel convention (LLR > 0 <=> bit 1); decoding uses
-    the exact parity rule. ``info_pos`` locates info bits for the
-    normalized-LLR metric.
+    ``llr`` follows the channel convention (LLR > 0 <=> bit 1). Outputs
+    match the XLA decoders: ``conv_iter`` is the 0-based iteration whose
+    post-iteration syndrome cleared, converged codewords are frozen, and
+    ``iters_run`` is the largest trip count over the batch's tiles.
 
-    ``schedule``: 'flooding' (all check nodes in parallel, matches the
-    reference's schedule) or 'layered' (serial-C: one sweep over base rows
-    with in-place posterior updates -- ~2x fewer iterations to a given FER;
-    bit-identical to ldpc_tpu.ops.layered's jnp implementation). Layered
-    supports multi-diagonal codes (e.g. CCSDS) via additive in-layer updates.
+    ``schedule``: 'flooding' or 'layered' (serial-C over base rows);
+    ``layer_groups`` (layered only) are disjoint-support row groups whose
+    flattened order is the sweep order (models.qc.paired_layer_groups).
+    ``track_norm=False`` elides the normalized-LLR bookkeeping and its
+    ``prior`` buffer (``norm_llr`` is then zeros). ``tile_b`` overrides
+    the codewords per program of :func:`pick_tile` (interpreter tests run
+    small tiles); the warps stay the plan's. ``interpret=True`` runs the
+    Pallas interpreter (for tests on the CPU; nothing selects it from the
+    backend). With ``mesh``, each device decodes its shard of the batch
+    under ``jax.shard_map`` over ``batch_axes`` (``pallas_call`` is opaque
+    to the SPMD partitioner).
     """
     variant = variant.lower().replace("-", "_")
-    if variant not in ("spa", "minsum", "normalized_minsum", "offset_minsum"):
+    if variant not in VARIANTS:
         raise ValueError(f"QC kernel does not support variant {variant!r}")
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"Unknown schedule: {schedule!r}")
 
     n, Z, nb, mb = qc.n, qc.Z, qc.nb, qc.mb
+    Zp = next_pow2(Z)
     row_slots = qc.row_slots()
+    col_slots = qc.col_slots()
+    groups = check_layer_groups(layer_groups, schedule, row_slots, mb)
+    alpha_arr, alpha_class = resolve_alpha_schedule(alpha, variant, row_slots)
+    # per base column: its circulants grouped by base row (a multi-diagonal
+    # block puts several on one column)
+    by_row = []
+    for entries in col_slots:
+        grps: dict[int, list[tuple[int, int, int]]] = {}
+        for e in entries:
+            grps.setdefault(e[0], []).append(e)
+        by_row.append(list(grps.values()))
+    row_off = np.concatenate([[0], np.cumsum([len(r) for r in row_slots])])
+    e_slots = int(row_off[-1])
+    # multi-diagonal layers accumulate their deltas through a one-block
+    # buffer (layered only: flooding sums every circulant in the posterior)
+    need_delta = schedule == "layered" and any(
+        len({bj for bj, _ in r}) < len(r) for r in row_slots
+    )
+    plan = pick_tile(qc)
+    TB = int(tile_b or plan.tile_b)
+    if TB < 1 or TB & (TB - 1):
+        raise ValueError(f"tile_b must be a power of two: {TB}")
     k = int(np.asarray(info_pos).shape[0])
-    e_slots = sum(len(r) for r in row_slots)
-    G = int(sublane_groups)
-    GZ = G * Z  # stacked block height; == Z at G=1 (the original layout)
-    RS = 1 if G == 1 else GZ  # row-output sublanes (make_decode_loop's MS)
+    info_mask = np.zeros((nb, Zp), np.float32)
+    ip = np.asarray(info_pos, np.int64)
+    info_mask[ip // Z, ip % Z] = 1.0
+    mask_const = info_mask.reshape(-1)
+    barrier = (lambda: None) if interpret else plgpu.debug_barrier
 
-    info_mask = np.zeros((n, 1), dtype=np.float32)
-    info_mask[np.asarray(info_pos, dtype=np.int64), 0] = 1.0
-    # grouped layout: every group sees the same per-block info mask
-    mask_np = (
-        info_mask if G == 1
-        else np.tile(info_mask.reshape(nb, 1, Z, 1), (1, G, 1, 1))
-        .reshape(n * G, 1)
-    )
+    def alpha_of(it):
+        """bi -> the normalized-min-sum weight at iteration ``it``."""
+        if alpha_arr is None:
+            return lambda bi: alpha
+        if alpha_arr.ndim == 1:
+            a = _sched_at(alpha_arr, it)
+            return lambda bi: a
+        cols = [_sched_at(alpha_arr[:, c], it)
+                for c in range(alpha_arr.shape[1])]
+        return lambda bi: cols[alpha_class[bi]]
 
-    loop = make_decode_loop(
-        qc, max_iterations, variant, alpha=alpha, beta=beta,
-        tile_b=tile_b, schedule=schedule, k=k, track_norm=track_norm,
-        msg_store=msg_store, layer_groups=layer_groups,
-        check_every=check_every, sublane_groups=G,
-    )
-    e_dtype = jnp.int8 if msg_store == "int8" else jnp.float32
+    def kernel(done0_ref, llr_ref, mask_ref, L_ref, E_ref, ok_ref, conv_ref,
+               norm_ref, iters_ref, *extra):
+        prior_ref = extra[0] if track_norm else None
+        D_ref = extra[-1] if need_delta else None
+        Bp = llr_ref.shape[0] // (nb * Zp)
+        z = jnp.arange(Zp, dtype=jnp.int32)[:, None]  # [Zp, 1]
+        lane = (pl.program_id(0) * TB
+                + jnp.arange(TB, dtype=jnp.int32))[None, :]  # [1, TB]
+        rows = jnp.broadcast_to(z < Z, (Zp, TB))
 
-    def kernel(skip_ref, llr_ref, mask_ref, est_ref, ok_ref, conv_ref,
-               norm_ref, iters_ref, E_ref, L_ref, *rest):
-        prior_ref = rest[0] if track_norm else None
-        TB = tile_b
+        def off(block: int, s: int = 0):
+            """Offsets of rows (z + s) % Z of ``block`` for this tile."""
+            s %= Z
+            r = z
+            if s:
+                r = jnp.where(z < Z - s, z + s, jnp.where(z < Z, z + s - Z, z))
+            return (block * Zp + r) * Bp + lane
 
-        def llr_blk(j):
-            return llr_ref[pl.ds(j * GZ, GZ), :]
+        def ld(ref, block, s=0):
+            return plgpu.load(ref.at[off(block, s)], mask=rows, other=0.0)
 
-        def mask_blk(j):
-            return mask_ref[pl.ds(j * GZ, GZ), :]
+        def st(ref, block, val, s=0, where=None):
+            m = rows if where is None else rows & where
+            plgpu.store(ref.at[off(block, s)], val, mask=m)
 
-        it, done_f, conv, norm = loop(
-            llr_blk, mask_blk, E_ref, L_ref, prior_ref,
-            skip_f=skip_ref[0].astype(jnp.float32),
-        )
-        # hard decisions from the final posteriors (frozen per lane at its
-        # converging iteration -- see make_decode_loop)
+        def check_phase_flooding(a_of, active):
+            for bi in range(mb):
+                slots = row_slots[bi]
+                msgs = [ld(L_ref, bj, s) - ld(E_ref, row_off[bi] + j)
+                        for j, (bj, s) in enumerate(slots)]
+                for j, e in enumerate(
+                        check_update_list(msgs, variant, a_of(bi), beta)):
+                    st(E_ref, row_off[bi] + j, e, where=active)
+            barrier()
+            for bj in range(nb):
+                acc = ld(llr_ref, bj)
+                for grp in by_row[bj]:
+                    vals = [ld(E_ref, row_off[bi] + j, -s) for bi, j, s in grp]
+                    for v in in_check_order(vals, [s for _, _, s in grp]):
+                        acc = acc + v
+                st(L_ref, bj, acc)
+            barrier()
+
+        def in_check_order(vals, shifts):
+            """Order the circulants one base row puts on a column by their
+            check row (z - s) % Z, per row z -- the order in which ops.spa
+            sums a variable's messages (one circulant: nothing to do)."""
+            keys = [jnp.where(z >= s % Z, z - s % Z, z - s % Z + Z)
+                    for s in shifts]
+            vals = list(vals)
+            for i in range(len(vals)):
+                for j in range(len(vals) - 1 - i):
+                    swap = keys[j] > keys[j + 1]
+                    vals[j], vals[j + 1] = (jnp.where(swap, vals[j + 1], vals[j]),
+                                            jnp.where(swap, vals[j], vals[j + 1]))
+                    keys[j], keys[j + 1] = (jnp.where(swap, keys[j + 1], keys[j]),
+                                            jnp.where(swap, keys[j], keys[j + 1]))
+            return vals
+
+        def write_delta_layer(bi, slots, e_old, e_new, active):
+            """Multi-diagonal layer: L[bj] += sum of the rolled deltas of
+            every circulant on bj, summed in slot order like ops.layered."""
+            by_col: dict[int, list[tuple[int, int]]] = {}
+            for j, (bj, s) in enumerate(slots):
+                by_col.setdefault(bj, []).append((j, s))
+            for bj, lst in by_col.items():
+                if len(lst) == 1:
+                    j, s = lst[0]
+                    st(L_ref, bj, ld(L_ref, bj, s) + (e_new[j] - e_old[j]), s,
+                       where=active)
+                    continue
+                j, s = lst[0]
+                st(D_ref, 0, e_new[j] - e_old[j], s)
+                for j, s in lst[1:]:
+                    barrier()
+                    st(D_ref, 0, ld(D_ref, 0, s) + (e_new[j] - e_old[j]), s)
+                barrier()
+                st(L_ref, bj, ld(L_ref, bj) + ld(D_ref, 0), where=active)
+                barrier()
+
+        def sweep_layered(a_of, active):
+            for group in groups:
+                work = []
+                for bi in group:
+                    slots = row_slots[bi]
+                    e_old = [ld(E_ref, row_off[bi] + j)
+                             for j in range(len(slots))]
+                    msgs = [ld(L_ref, bj, s) - e_old[j]
+                            for j, (bj, s) in enumerate(slots)]
+                    e_new = check_update_list(msgs, variant, a_of(bi), beta)
+                    work.append((bi, slots, e_old, msgs, e_new))
+                barrier()  # every read of this group precedes its writes
+                for bi, slots, e_old, msgs, e_new in work:
+                    if len({bj for bj, _ in slots}) < len(slots):
+                        write_delta_layer(bi, slots, e_old, e_new, active)
+                    else:
+                        for j, (bj, s) in enumerate(slots):
+                            st(L_ref, bj, msgs[j] + e_new[j], s, where=active)
+                    for j in range(len(slots)):
+                        st(E_ref, row_off[bi] + j, e_new[j], where=active)
+                barrier()
+
+        def syndrome_ok():
+            unsat = jnp.zeros((1, TB), jnp.float32)
+            for bi in range(mb):
+                parity = None
+                for bj, s in row_slots[bi]:
+                    bit = ld(L_ref, bj, s) < 0
+                    parity = bit if parity is None else parity ^ bit
+                if parity is not None:
+                    unsat = jnp.maximum(unsat, jnp.max(
+                        parity.astype(jnp.float32), axis=0, keepdims=True))
+            return unsat < 0.5
+
+        def flip_fraction():
+            flips = jnp.zeros((1, TB), jnp.float32)
+            for bj in range(nb):
+                Lv = ld(L_ref, bj)
+                f = (jnp.abs(Lv) <= LLR_WINDOW) & (ld(prior_ref, bj) * Lv < 0)
+                m = plgpu.load(mask_ref.at[bj * Zp + z])
+                flips = flips + jnp.sum(f.astype(jnp.float32) * m, axis=0,
+                                        keepdims=True)
+                st(prior_ref, bj, Lv)
+            return flips / max(k, 1)
+
+        # init: posterior = channel LLRs, extrinsics = 0
         for bj in range(nb):
-            est_ref[pl.ds(bj * GZ, GZ), :] = (L_ref[bj] < 0).astype(jnp.float32)
-        ok_ref[:] = done_f
-        conv_ref[:] = conv
-        norm_ref[:] = norm
-        iters_ref[:] = jnp.full((1, TB), it, jnp.int32)
+            v = ld(llr_ref, bj)
+            st(L_ref, bj, v)
+            if track_norm:
+                st(prior_ref, bj, v)
+        zero = jnp.zeros((Zp, TB), jnp.float32)
+        for e in range(e_slots):
+            st(E_ref, e, zero)
+        barrier()
 
-    grid_kernel = functools.partial(pl.pallas_call, kernel, interpret=interpret)
+        def body(carry):
+            it, done_f, conv, norm = carry
+            active = done_f < 0.5
+            barrier()  # the last iteration's syndrome reads precede writes
+            a_of = alpha_of(it)
+            if schedule == "flooding":
+                check_phase_flooding(a_of, active)
+            else:
+                sweep_layered(a_of, active)
+            ok_now = syndrome_ok()
+            if track_norm:
+                norm = jnp.where(active, flip_fraction(), norm)
+            conv = jnp.where(active & ok_now, it, conv)
+            done_f = jnp.maximum(done_f, ok_now.astype(jnp.float32))
+            return it + 1, done_f, conv, norm
 
-    mask_const = jnp.asarray(mask_np)
+        def cond(carry):
+            it, done_f, _, _ = carry
+            return (it < max_iterations) & (jnp.min(done_f) < 0.5)
+
+        done0 = plgpu.load(done0_ref.at[lane])
+        init = (
+            jnp.int32(0),
+            done0,
+            jnp.full((1, TB), -1, jnp.int32),
+            jnp.zeros((1, TB), jnp.float32),
+        )
+        it, done_f, conv, norm = jax.lax.while_loop(cond, body, init)
+        plgpu.store(ok_ref.at[lane], done_f)
+        plgpu.store(conv_ref.at[lane], conv)
+        plgpu.store(norm_ref.at[lane], norm)
+        # a lane's trip count is its tile's, or 0 if it started done (a
+        # skipped SNR point sharing the tile ran no iteration of its own)
+        plgpu.store(iters_ref.at[lane], jnp.where(done0 < 0.5, it, 0))
+
+    def decode_lanes_impl(llr, done0):
+        """llr f32 [B, n], done0 f32 [B] -> per-codeword
+        (est u8 [B, n], ok bool, conv i32, norm f32, iters i32)."""
+        B = llr.shape[0]
+        Bp = -(-B // TB) * TB
+        if max(e_slots, nb) * Zp * Bp >= 2**31:
+            raise ValueError("QC kernel: batch too large for int32 offsets")
+        x = -llr.astype(jnp.float32).reshape(B, nb, Z)
+        x = jnp.pad(x, ((0, Bp - B), (0, 0), (0, Zp - Z)))
+        x = x.transpose(1, 2, 0).reshape(-1)
+        # padding codewords start done: they never hold a tile's loop open
+        d0 = jnp.pad(done0.astype(jnp.float32), (0, Bp - B),
+                     constant_values=1.0)
+        f32 = jnp.float32
+        out_shape = [
+            jax.ShapeDtypeStruct((nb * Zp * Bp,), f32),  # L (posteriors)
+            jax.ShapeDtypeStruct((e_slots * Zp * Bp,), f32),  # E
+            jax.ShapeDtypeStruct((Bp,), f32),  # ok
+            jax.ShapeDtypeStruct((Bp,), jnp.int32),  # conv
+            jax.ShapeDtypeStruct((Bp,), f32),  # norm
+            jax.ShapeDtypeStruct((Bp,), jnp.int32),  # trips per lane
+        ]
+        if track_norm:
+            out_shape.append(jax.ShapeDtypeStruct((nb * Zp * Bp,), f32))
+        if need_delta:
+            out_shape.append(jax.ShapeDtypeStruct((Zp * Bp,), f32))
+        outs = pl.pallas_call(
+            kernel,
+            out_shape=out_shape,
+            grid=(Bp // TB,),
+            in_specs=[pl.BlockSpec()] * 3,
+            out_specs=[pl.BlockSpec()] * len(out_shape),
+            compiler_params=plgpu.CompilerParams(
+                num_warps=plan.num_warps, num_stages=1
+            ),
+            backend="triton",
+            interpret=interpret,
+            name="qc_decode",
+        )(d0, x, jnp.asarray(mask_const))
+        L, _, ok, conv, norm, iters = outs[:6]
+        L = L.reshape(nb, Zp, Bp)[:, :Z, :B].transpose(2, 0, 1)
+        est = (L.reshape(B, n) < 0).astype(jnp.uint8)
+        return est, ok[:B] > 0.5, conv[:B], norm[:B], iters[:B]
+
+    lanes_cv = jax.custom_batching.custom_vmap(decode_lanes_impl)
+
+    @lanes_cv.def_vmap
+    def _decode_lanes_vmap(axis_size, in_batched, llr, done0):
+        # a vmapped call (the parallel SNR sweep) is one flat batch of
+        # axis_size * B codewords: each codeword's decode is independent of
+        # which tile it shares
+        llr_b, done_b = in_batched
+        if not llr_b:
+            llr = jnp.broadcast_to(llr, (axis_size,) + llr.shape)
+        if not done_b:
+            done0 = jnp.broadcast_to(done0, (axis_size,) + done0.shape)
+        S, B = llr.shape[:2]
+        outs = lanes_cv(llr.reshape(S * B, n), done0.reshape(S * B))
+        return (tuple(o.reshape((S, B) + o.shape[1:]) for o in outs),
+                (True,) * 5)
+
+    decode_lanes = lanes_cv
+    if mesh is not None and batch_axes:
+        PS = jax.sharding.PartitionSpec
+        spec = PS(batch_axes)
+        decode_lanes = jax.shard_map(
+            decode_lanes, mesh=mesh, in_specs=(spec, spec),
+            out_specs=(spec,) * 5, check_vma=False,
+        )
 
     def decode(llr: jax.Array, skip: jax.Array | None = None) -> DecodeResult:
         B = llr.shape[0]
-        Bp = -(-B // (G * tile_b)) * (G * tile_b)
-        # negate into the log(p0/p1) domain (exact rule); lanes = codewords
-        llr_t = -llr.T.astype(jnp.float32)
-        if Bp != B:
-            llr_t = jnp.pad(llr_t, ((0, 0), (0, Bp - B)))
-        if G > 1:
-            llr_t = stack_groups(llr_t, Z, G, tile_b)
-        Bl = Bp // G  # kernel lane extent (grouped layout)
-        grid = (Bl // tile_b,)
-        skip_arr = (
-            jnp.zeros((1,), jnp.int32) if skip is None
-            else jnp.asarray(skip, jnp.int32).reshape((1,))
+        done0 = (
+            jnp.zeros((B,), jnp.float32) if skip is None
+            else jnp.broadcast_to(jnp.asarray(skip, jnp.float32), (B,))
         )
-
-        est_f, ok_f, conv, norm, iters = grid_kernel(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # skip [1]
-                pl.BlockSpec((n * G, tile_b), lambda b: (0, b), memory_space=pltpu.VMEM),
-                pl.BlockSpec((n * G, 1), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((n * G, tile_b), lambda b: (0, b), memory_space=pltpu.VMEM),
-                pl.BlockSpec((RS, tile_b), lambda b: (0, b), memory_space=pltpu.VMEM),
-                pl.BlockSpec((RS, tile_b), lambda b: (0, b), memory_space=pltpu.VMEM),
-                pl.BlockSpec((RS, tile_b), lambda b: (0, b), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile_b), lambda b: (0, b), memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n * G, Bl), jnp.float32),
-                jax.ShapeDtypeStruct((RS, Bl), jnp.float32),
-                jax.ShapeDtypeStruct((RS, Bl), jnp.int32),
-                jax.ShapeDtypeStruct((RS, Bl), jnp.float32),
-                jax.ShapeDtypeStruct((1, Bl), jnp.int32),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((e_slots, GZ, tile_b), e_dtype),  # E (flattened)
-                pltpu.VMEM((nb, GZ, tile_b), jnp.float32),  # L
-            ] + (
-                [pltpu.VMEM((nb, GZ, tile_b), jnp.float32)]  # prior
-                if track_norm else []
-            ),
-        )(skip_arr, llr_t, mask_const)
-
-        if G > 1:
-            est_f = unstack_groups(est_f, Z, G, tile_b)
-            ok_row = ungroup_rows(ok_f, Z, G, tile_b)
-            conv_row = ungroup_rows(conv, Z, G, tile_b)
-            norm_row = ungroup_rows(norm, Z, G, tile_b)
-        else:
-            ok_row, conv_row, norm_row = ok_f[0], conv[0], norm[0]
-        est = est_f.T[:B].astype(jnp.uint8)
-        return DecodeResult(
-            ok=ok_row[:B] > 0,
-            est=est,
-            conv_iter=conv_row[:B],
-            norm_llr=norm_row[:B],
-            iters_run=jnp.max(iters),
-        )
+        est, ok, conv, norm, iters = decode_lanes(llr, done0)
+        return DecodeResult(ok=ok, est=est, conv_iter=conv, norm_llr=norm,
+                            iters_run=jnp.max(iters))
 
     return decode
-
-
-# VMEM the Mosaic compiler can scope per kernel invocation (v4/v5 chips have
-# 16 MB less compiler-reserved space; stay comfortably inside)
-VMEM_BUDGET = 14 << 20
-
-
-def qc_vmem_bytes(qc: QCLayout, schedule: str = "flooding",
-                  tile_b: int = 128, extra_blocks: int = 0,
-                  track_norm: bool = True, msg_store: str = "f32",
-                  sublane_groups: int = 1) -> int:
-    """Resident VMEM of the decode kernel for one grid step.
-
-    Counts scratch (E + L, plus ``prior`` when ``track_norm``) plus the I/O
-    blocks (llr, est, info mask; ``extra_blocks`` more [n, lanes] f32 blocks
-    for callers that add inputs, e.g. the fused Monte-Carlo kernel's
-    packed-codeword input). The lane dimension is padded to the 128-wide
-    vector registers, so tiles below 128 lanes do NOT reduce the footprint --
-    tile_b is clamped up for accounting. ``msg_store='int8'`` stores E at
-    1 byte/entry with the sublane dim padded to int8's 32-row tiles.
-    """
-    lanes = max(tile_b, 128)
-    G = max(int(sublane_groups), 1)
-    GZ = G * qc.Z  # grouped layout stacks G Z-blocks per array
-    row_slots = qc.row_slots()
-    e_slots = sum(len(r) for r in row_slots)  # flattened E: exact edge slots
-    l_blocks = 2 if track_norm else 1  # L (+ prior)
-    if msg_store == "int8":
-        z_pad = -(-GZ // 32) * 32  # int8 sublane tile is 32 rows
-        e_bytes = 1 * lanes * e_slots * z_pad
-    else:
-        e_bytes = 4 * lanes * e_slots * GZ
-    scratch = e_bytes + 4 * lanes * l_blocks * qc.nb * GZ
-    # llr in + est out (+ extras), each [n*G, lanes] in the grouped layout;
-    # x2: the pallas pipeline double-buffers I/O blocks across grid steps
-    # (validated against a Mosaic scoped-vmem OOM at wifi_648 G=4, whose
-    # allocation exceeded the single-buffered estimate by ~the I/O total)
-    io = 2 * 4 * lanes * qc.n * G * (2 + extra_blocks)
-    mask = 4 * 128 * qc.n * G  # [n*G, 1] block occupies one full lane group
-    return scratch + io + mask
-
-
-def qc_kernel_fits(qc: QCLayout, schedule: str = "flooding",
-                   tile_b: int = 128, extra_blocks: int = 0,
-                   track_norm: bool = True, msg_store: str = "f32",
-                   sublane_groups: int = 1) -> bool:
-    return qc_vmem_bytes(qc, schedule, tile_b, extra_blocks,
-                         track_norm, msg_store, sublane_groups) <= VMEM_BUDGET
-
-
-def pick_tile_b(qc: QCLayout, schedule: str = "flooding") -> int:
-    """Lane tile for the QC kernel: always 128.
-
-    Lanes pad to the 128-wide vregs, so smaller tiles save nothing; larger
-    tiles measured slower on v5e (wimax 1152, layered-12: 128 runs ~5% faster
-    than 256) and coarsen per-tile early exit. Codes whose scratch exceeds
-    the VMEM budget at 128 lanes cannot shrink their way in -- callers must
-    check :func:`qc_kernel_fits` and fall back to the XLA decoder
-    (ldpc_tpu.sim.runner._select_decoder does).
-    """
-    return 128

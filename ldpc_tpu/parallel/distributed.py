@@ -4,17 +4,18 @@ The reference is single-host by construction (ProcessPoolExecutor + pickle,
 main.py:241-292). Here, multi-host scaling is the same code path as
 single-host: initialize the JAX multi-controller runtime, build one
 `jax.sharding.Mesh` over all devices (local + remote), and the batch/snr
-shardings in ldpc_tpu.parallel.mesh span DCN-connected hosts transparently --
-each host feeds its addressable shard of the codeword batch and counter
-reductions ride the interconnect.
+shardings in ldpc_tpu.parallel.mesh span hosts transparently -- each host
+feeds its addressable shard of the codeword batch and counter reductions
+ride the interconnect.
 
-Launch pattern (one process per host):
+Launch pattern (one process per host; nothing infers the cluster, so all
+three values are given):
 
     JAX_COORDINATOR_ADDRESS=host0:1234 JAX_NUM_PROCESSES=4 JAX_PROCESS_ID=k \
         python -m ldpc_tpu.cli --distributed --matrix ... --mesh batch=-1
 
-On TPU pods the three values are usually inferred from the environment and
-plain ``--distributed`` suffices (jax.distributed.initialize with no args).
+The cards of one host need no process per card: one process drives them
+all (``--mesh batch=4``).
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def initialize_distributed(
 
     Arguments default to $JAX_COORDINATOR_ADDRESS / $JAX_NUM_PROCESSES /
     $JAX_PROCESS_ID; with none available, falls back to
-    ``jax.distributed.initialize()``'s own auto-detection (TPU pods). A
-    single-process environment (no coordinator, no pod metadata) is left
+    ``jax.distributed.initialize()``'s own cluster detection. A
+    single-process environment (no coordinator, no cluster) is left
     untouched so local runs keep working with the same flag.
     """
     global _initialized
@@ -62,7 +63,7 @@ def initialize_distributed(
                 process_id=process_id,
             )
         else:
-            jax.distributed.initialize()  # pod auto-detection
+            jax.distributed.initialize()  # cluster auto-detection
     except (ValueError, RuntimeError) as e:
         # single-process environment: nothing to coordinate
         if coordinator_address or num_processes:

@@ -1,21 +1,23 @@
 """Device meshes and sharded Monte-Carlo steps.
 
 The reference's only parallelism is ProcessPoolExecutor over codeword blocks
-(`python_ldpc_app/main.py:241-292`). The TPU-native equivalent is a
-`jax.sharding.Mesh` whose axes carry the two embarrassingly parallel
-dimensions of the workload:
+(`python_ldpc_app/main.py:241-292`). Here it is a `jax.sharding.Mesh` whose
+axes carry the two embarrassingly parallel dimensions of the workload:
 
   batch -- Monte-Carlo codewords: every tensor in the pipeline is
            batch-leading, so a sharding constraint on the info-bit batch
            propagates data-parallel layouts through encode/channel/decode and
-           XLA reduces the BlockCounters with psums over ICI.
+           XLA reduces the BlockCounters with cross-device sums. The QC
+           Pallas kernel runs per shard under ``jax.shard_map``.
   snr   -- SNR points: independent channel configurations evaluated
            simultaneously by vmapping the point step over a stacked
            ChannelConsts and sharding that axis.
 
-Multi-host: initialize `jax.distributed` before building the mesh; the same
-code paths then span DCN-connected hosts (each host feeds its addressable
-shard of the batch axis).
+The mesh reshapes the device list in order and assumes no topology: the
+cards of one host reach each other all to all (NVLink), so the axes follow
+the algorithm alone. Multi-host: initialize `jax.distributed` before
+building the mesh; the same code paths then span hosts (each host feeds its
+addressable shard of the batch axis).
 """
 
 from __future__ import annotations
@@ -63,7 +65,9 @@ def sharded_sweep_step(executor_step, mesh: Mesh, snr_axis: str = "snr"):
     """
     from ldpc_tpu.ops.metrics import BlockStats
 
-    vstep = jax.vmap(executor_step)
+    # spmd_axis_name: a shard_map inside the step (the QC kernel's) sees the
+    # vmapped SNR axis as sharded over snr_axis instead of replicated
+    vstep = jax.vmap(executor_step, spmd_axis_name=snr_axis)
     key_spec = NamedSharding(mesh, P(snr_axis))
     batch_axes = tuple(a for a in mesh.axis_names if a != snr_axis)
     # stats are [S, B]: SNR axis x codeword batch sharded over remaining axes

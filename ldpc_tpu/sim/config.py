@@ -2,8 +2,8 @@
 
 `SimOptions` is the single options bean: it carries the reference's full flag
 surface (`python_ldpc_app/main.py:456-523`, `settings.py:4-89`) plus the
-TPU-native knobs (decode graph, check-node rule, noise model, decoder variant,
-device batch size, PRNG seed). `fidelity` presets bundle the compat quirks:
+knobs of this framework (decode graph, check-node rule, noise model, decoder
+variant, device batch size, PRNG seed). `fidelity` presets bundle the compat quirks:
 
   'reference' -- decode on H_std with the reference's legacy check-node rule
                  and legacy (sigma^2-as-stddev) noise: BER/FER curves match
@@ -80,78 +80,32 @@ class SimOptions:
     plot: bool = False
     plot_save: str | None = None
 
-    # --- TPU-native knobs ---
+    # --- decode graph, kernel and schedule ---
     fidelity: str = "reference"  # preset: 'reference' | 'exact' (see module doc)
     decode_graph: str | None = None  # 'std' | 'orig' (None -> from fidelity)
     check_rule: str | None = None  # 'legacy' | 'exact' (None -> from fidelity)
     noise_model: str | None = None  # 'legacy' | 'exact' (None -> from fidelity)
     batch: int = 0  # device batch of codewords; 0 -> auto
-    kernel: str = "auto"  # 'auto' | 'pallas' (QC roll kernel) | 'xla' (gather decoder)
-    # fully-fused Monte-Carlo step (ldpc_tpu.ops.mc_pallas): channel noise,
-    # LLRs, decode and counters in ONE Pallas kernel (in-kernel PRNG on TPU).
-    # 'auto': on TPU whenever eligible (QC code, exact rule, orig graph,
-    # SPA/min-sum variant, no interleaver, BPSK/QPSK, no shorten/puncture,
-    # no mesh); 'on': force (CPU uses the injected-noise variant in interpret
-    # mode -- slow, for tests); 'off': always use the unfused pipeline.
-    fused: str = "auto"
-    # two-phase fused dispatch: phase 1 decodes EVERY frame for a short
-    # budget and emits its in-kernel LLRs; the ~FER(phase1) unconverged
-    # frames are compacted to the front lanes and re-decoded from exactly
-    # those LLR bits with the full budget (bit-identical per frame -- decode
-    # is lane-wise-deterministic, tests/test_two_phase.py + the on-hardware
-    # check parity_runs/tpu_two_phase.json). At a waterfall point this cuts
-    # mean tile trips from ~max_iterations to
-    # ~phase1 + FER(phase1)*max_iterations; at FER~1 every frame re-decodes
-    # and it is strictly slower. 'auto' therefore is OPERATING-POINT-AWARE:
-    # with >= 8 iterations it probes each SNR point with one single-pass
-    # batch and enables the phase1 = max_iterations // 2 split only where
-    # the probe's convergence profile predicts a win
-    # (runner.PointExecutor._decide_two_phase; measured envelope in
-    # examples/two_phase_envelope). 'off' disables; an explicit phase-1
-    # iteration count (0 < N < max_iterations) forces the split everywhere.
-    two_phase: str = "auto"
+    # decode kernel: 'auto' picks the QC Pallas kernel (ops.spa_pallas) on a
+    # GPU whenever the code is eligible, else the XLA decoder; 'pallas' forces the kernel (and raises where it cannot run);
+    # 'xla' forces the XLA decoders
+    kernel: str = "auto"
     schedule: str = "flooding"  # 'flooding' (reference schedule) | 'layered' (QC serial-C)
     # layered-sweep row order: 'serial' processes base rows 0..mb-1 (the
     # canonical serial-C order); 'paired' processes disjoint-support row
     # PAIRS per step (models.qc.paired_layer_groups) -- arithmetic-identical
-    # to the serial sweep in the flattened pair order, but each step hands
-    # the VPU two independent dependence chains (better ALU packing on the
-    # serial layered bottleneck). A reordered sweep is a DIFFERENT (equally
-    # valid) decode schedule, so statistics differ from 'serial' at the MC
-    # level; layer_order is part of the checkpoint fingerprint.
+    # to the serial sweep in the flattened pair order (the kernel then needs
+    # one barrier per pair instead of per row). A reordered sweep is a
+    # DIFFERENT (equally valid) decode schedule, so statistics differ from
+    # 'serial' at the MC level; layer_order is part of the checkpoint
+    # fingerprint.
     layer_order: str = "serial"  # 'serial' | 'paired'
-    # syndrome-check cadence in the Pallas decode loops: N runs N
-    # message-passing sweeps per syndrome check (the check is ~14% of a
-    # layered iteration's ops). Convergence detection coarsens to N-sweep
-    # windows: conv_iter reports the check iteration, lanes keep updating
-    # between checks, so counters are NOT bit-identical to N=1 (FER
-    # agreement is statistical); part of the checkpoint fingerprint.
-    # Requires iterations % N == 0, --normalized-llr off, and a Pallas
-    # decode path (fused or kernel=pallas).
-    check_every: int = 1
-    # extrinsic (check->var message) storage in the Pallas kernels:
-    # 'int8' quantizes E to the FER-free 256-level grid of
-    # examples/quantized_messages (min-sum variants only; 3-4x smaller E
-    # scratch -- a VMEM-capacity knob, measured slightly slower since the
-    # kernel is VPU-issue-bound)
-    msg_store: str = "f32"  # 'f32' | 'int8'
-    # sublane grouping in the Pallas decode loops: G stacks G independent
-    # 128-codeword groups into the sublane dimension. Measured on v5e
-    # with device-bound paired windows (examples/sublane_fill): wins
-    # x1.52-1.60 exactly where the (8, 128) vector registers are
-    # underfilled (Z=4), loses 10-40% for Z >= 8 -- so 'auto' fills one
-    # vreg (G = 8//Z for Z < 8, else 1;
-    # runner.resolve_sublane_groups). Per-codeword counters are
-    # bit-identical to G=1 (tests/test_sublane_groups.py); what changes
-    # is tile-exit granularity (one kernel tile waits for G*128
-    # codewords) and the hw-PRNG draw geometry (part of the checkpoint
-    # fingerprint).
-    sublane_groups: str | int = "auto"
     seed: int = 0
     exact_ber: bool = False  # also count undetected-error bits (not just failed frames)
     # scalar, or a per-iteration schedule (tuple) -- e.g. a learned one
     # (ldpc_tpu.analysis.learned_minsum); schedules run on every decode
-    # path (XLA, layered, Pallas, fused) via per-iteration alpha resolution
+    # path (XLA flooding, XLA layered, the QC kernel) via per-iteration
+    # alpha resolution
     minsum_alpha: float | tuple[float, ...] = 0.75
     minsum_beta: float = 0.15
     quiet: bool = False
@@ -185,34 +139,10 @@ class SimOptions:
             )
         if self.layer_order == "paired" and self.schedule != "layered":
             raise ValueError("--layer-order paired requires --schedule layered")
-        if self.check_every < 1:
-            raise ValueError(f"--check-every must be >= 1: {self.check_every}")
-        if self.check_every > 1 and self.iterations % self.check_every:
+        if self.kernel not in ("auto", "pallas", "xla"):
             raise ValueError(
-                f"--check-every {self.check_every} must divide "
-                f"--iterations {self.iterations}"
+                f"kernel must be 'auto', 'pallas' or 'xla': {self.kernel!r}"
             )
-        if self.check_every > 1 and self.normalized_llr:
-            raise ValueError(
-                "--check-every > 1 is incompatible with --normalized-llr "
-                "(the flip metric is defined per iteration)"
-            )
-        if self.sublane_groups != "auto":
-            try:
-                g = int(self.sublane_groups)
-            except (TypeError, ValueError):
-                raise ValueError(
-                    "--sublane-groups must be 'auto' or a positive "
-                    f"integer: {self.sublane_groups!r}"
-                ) from None
-            if g < 1:
-                raise ValueError(f"--sublane-groups must be >= 1: {g}")
-            if g > 1 and self.normalized_llr:
-                raise ValueError(
-                    "--sublane-groups > 1 is incompatible with "
-                    "--normalized-llr (no exact within-block rotate-reduce "
-                    "for the flip sum)"
-                )
         exact = self.fidelity == "exact"
         return replace(
             self,
@@ -237,8 +167,8 @@ class SimOptions:
         }.get(d, d)
 
     def auto_batch(self, n: int) -> int:
-        """Pick a device batch size: large enough to saturate the chip, small
-        enough to keep message tensors comfortably in HBM."""
+        """Pick a device batch size: large enough to fill the card, small
+        enough to keep message tensors comfortably in device memory."""
         if self.batch > 0:
             return self.batch
         target_elems = 64 << 20  # ~256 MB of f32 messages

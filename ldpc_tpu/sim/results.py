@@ -69,7 +69,7 @@ class SimulationConfig:
     timestamp: str
     interference_snr: float = 0.0
     p: float = 0.1
-    # TPU-framework extensions (absent in reference files; defaulted on load)
+    # extensions of this framework (absent in reference files; defaulted on load)
     fidelity: str = "reference"
     decode_graph: str = "std"
     check_rule: str = "legacy"
@@ -83,12 +83,7 @@ class SimulationConfig:
     s_param: int = 2
     exact_ber: bool = False
     adaptive: bool = False
-    fused: str = "auto"
     layer_order: str = "serial"
-    check_every: int = 1
-    # sublane grouping ('auto' or int as given): at G>1 the hw-PRNG draw
-    # geometry changes, so the RESOLVED G is part of the sweep fingerprint
-    sublane_groups: str = "auto"
 
 
 @dataclass

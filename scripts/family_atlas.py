@@ -1,15 +1,15 @@
-"""Waterfall atlas: FER/BER curves for every builtin code family on TPU.
+"""Waterfall atlas: FER/BER curves for every builtin code family.
 
 The reference ships one 50-block demo sweep; its database spans 119 codes
-across 9 families that nobody can afford to sweep at 85 bits/s. At the
-fused kernel's ~1.5 G info bits/s, a 20k-block, 6-point waterfall per code
-is seconds — so this script sweeps EVERY builtin QC code at exact physics
-(Eb/N0 axis) and renders one FER plot per family plus a CSV of all points.
+across 9 families that nobody can afford to sweep at 85 bits/s. Here a
+20k-block, 6-point waterfall per code is quick, so this script sweeps EVERY
+builtin QC code at exact physics (Eb/N0 axis) and renders one FER plot per
+family plus a CSV of all points.
 
 Output: examples/family_atlas/{atlas.csv, <family>.png, RESULTS.md}
 
-Usage (from /root/repo, TPU attached):
-    PYTHONPATH=. python scripts/family_atlas.py [--blocks 20000]
+Usage (from the repository root, on a GPU):
+    python scripts/family_atlas.py [--blocks 20000]
 """
 
 from __future__ import annotations
@@ -134,8 +134,8 @@ def main() -> int:
             f"{n_codes} QC codes, {n_points} SNR points, "
             f"{total_blocks:,} decoded blocks total, generated in "
             f"{total_min:.1f} min on one {jax.devices()[0].device_kind} "
-            "chip by `scripts/family_atlas.py` (fused Monte-Carlo kernel, "
-            "exact physics, Eb/N0 axis via speed=rate; layered SPA-12 for "
+            "by `scripts/family_atlas.py` (exact physics, Eb/N0 axis via "
+            "speed=rate; layered SPA-12 for "
             "single-diagonal codes, flooding for multi-diagonal).\n\n"
             "For scale: the reference simulator at its measured 85 info "
             "bits/s (8 worker processes) would need "

@@ -22,8 +22,8 @@ time-seeded numpy RNG (`channel.py:30,85-89`) and gate the second LCG's
 consumption; mode-2 parity evidence is distributional -- see
 scripts/parity_spread.py.)
 
-Usage (from /root/repo, TPU attached):
-    PYTHONPATH=. python scripts/parity_fixed_noise.py [--reps 100]
+Usage (from the repository root, on a GPU):
+    python scripts/parity_fixed_noise.py [--reps 100]
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ estimate under our channel/decoder model. If the reference's observed value
 falls inside the central 95% of that distribution, the two simulators are
 statistically indistinguishable at the reference's own precision.
 
-Usage (from /root/repo, TPU attached):
+Usage (from the repository root, on a GPU):
     python scripts/parity_spread.py [--reps 30] [--out parity_runs/spread.json]
 """
 

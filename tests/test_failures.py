@@ -37,7 +37,6 @@ def _opts(**kw):
         fidelity="exact",
         exact_ber=True,
         speed=0.5,
-        fused="off",
         seed=3,
         **kw,
     )

@@ -151,7 +151,7 @@ def test_cli_sweep_with_alpha_schedule(wimax, tmp_path):
 def test_empty_alpha_schedule_rejected(wimax):
     """resolve_alpha_schedule must reject an empty [0] or [0, D] schedule
     with a clear error instead of a trace-time IndexError."""
-    from ldpc_tpu.ops.spa_pallas import resolve_alpha_schedule
+    from ldpc_tpu.ops.spa import resolve_alpha_schedule
 
     row_slots = wimax.qc.row_slots()
     for bad in (np.zeros((0,)), np.zeros((0, 3))):
@@ -178,13 +178,13 @@ def test_alpha_schedule_requires_normalized_minsum_decoder():
 @pytest.mark.parametrize("argv", [
     ["--schedule", "layered"],
     ["--kernel", "pallas"],
-    ["--fused", "on"],
+    ["--kernel", "pallas", "--schedule", "layered"],
 ])
 def test_alpha_schedule_builds_on_all_paths(argv):
-    """Per-iteration alpha schedules run on every decode path (layered,
-    standalone Pallas, fused Monte-Carlo) since round 2 -- these configs
-    must construct without error (bit-identity vs the XLA decoder is
-    covered in tests/test_pallas.py)."""
+    """Per-iteration alpha schedules run on every decode path (XLA layered,
+    the QC kernel on both schedules) -- these configs must construct
+    without error (bit-identity vs the XLA decoder is covered in
+    tests/test_pallas.py). The kernel runs in the interpreter here."""
     from ldpc_tpu.cli import build_parser, options_from_args
     from ldpc_tpu.sim.runner import PointExecutor
 
@@ -195,7 +195,7 @@ def test_alpha_schedule_builds_on_all_paths(argv):
         "--decoder", "normalized-minsum",
     ]
     opts = options_from_args(build_parser().parse_args(base + argv))
-    PointExecutor(code, opts)  # must not raise
+    PointExecutor(code, opts, interpret=True)  # must not raise
 
 
 @slow

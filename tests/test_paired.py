@@ -69,7 +69,7 @@ def test_paired_pallas_matches_xla_flat_order(wimax, variant):
     flat = [bi for g in groups for bi in g]
     d_x = make_qc_layered_decoder(code.qc, info, 8, variant, layer_order=flat)
     d_p = make_qc_decoder(code.qc, info, 8, variant, interpret=True,
-                          schedule="layered", layer_groups=groups)
+                          schedule="layered", layer_groups=groups, tile_b=8)
     r1 = d_x(jnp.asarray(llr))
     r2 = d_p(jnp.asarray(llr))
     assert np.array_equal(np.asarray(r1.est), np.asarray(r2.est))
@@ -88,9 +88,9 @@ def test_paired_decodes_like_serial_statistically(wimax):
     _, _, llr = _llrs(code, 48, seed=9, sigma=0.82)
     groups = paired_layer_groups(code.qc)
     d_s = make_qc_decoder(code.qc, info, 8, "spa", interpret=True,
-                          schedule="layered")
+                          schedule="layered", tile_b=16)
     d_p = make_qc_decoder(code.qc, info, 8, "spa", interpret=True,
-                          schedule="layered", layer_groups=groups)
+                          schedule="layered", layer_groups=groups, tile_b=16)
     ok_s = int(np.asarray(d_s(jnp.asarray(llr)).ok).sum())
     ok_p = int(np.asarray(d_p(jnp.asarray(llr)).ok).sum())
     assert ok_s > 24  # the operating point actually decodes
@@ -123,8 +123,9 @@ def test_config_validation():
 
 
 def test_runner_paired_end_to_end():
-    """Full fused sweep (interpret) with --layer-order paired: sane stats,
-    kernel string advertises the pairing, fingerprint differs from serial."""
+    """Full sweep through the QC kernel (interpreter) with --layer-order
+    paired: sane stats, kernel string advertises the pairing, fingerprint
+    differs from serial."""
     from ldpc_tpu.sim.config import SimOptions
     from ldpc_tpu.sim.runner import (
         load_code,
@@ -136,101 +137,18 @@ def test_runner_paired_end_to_end():
     code = load_code("builtin:wimax_576_0.5.alist.txt")
     kw = dict(
         matrix="builtin:wimax_576_0.5.alist.txt",
-        blocks=256, batch=256, iterations=6, ber=True, fer=True,
+        blocks=64, batch=64, iterations=6, ber=True, fer=True,
         fidelity="exact", schedule="layered", kernel="pallas",
         initial_snr=2.0, end_snr=2.0, step_snr=1.0, seed=3, quiet=True,
-        two_phase="off",
     )
-    res = run_simulation(SimOptions(layer_order="paired", **kw), code)
+    res = run_simulation(SimOptions(layer_order="paired", **kw), code,
+                         interpret=True)
     pt = res.snr_points[0]
     assert 0.0 <= pt.fer <= 1.0
-    assert pt.total_blocks == 256
+    assert pt.total_blocks == 64
     assert res.config.layer_order == "paired"
     f_paired = sweep_fingerprint(res.config)
     f_serial = sweep_fingerprint(
         make_sim_config(SimOptions(layer_order="serial", **kw).resolved(), code)
     )
     assert f_paired != f_serial
-
-
-# ---- syndrome-check gating (check_every) ----
-
-
-@pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_check_every_statistical_equivalence(wimax, schedule):
-    """ce=2 coarsens convergence detection but must decode about equally
-    well; conv_iter lands only on check iterations (odd at ce=2)."""
-    code = wimax
-    info = code.standard_encode_spec.info_pos("orig")
-    _, _, llr = _llrs(code, 48, seed=13, sigma=0.82)
-    iters = 8 if schedule == "layered" else 14  # flooding needs ~2x sweeps
-    d1 = make_qc_decoder(code.qc, info, iters, "spa", interpret=True,
-                         schedule=schedule, track_norm=False)
-    d2 = make_qc_decoder(code.qc, info, iters, "spa", interpret=True,
-                         schedule=schedule, track_norm=False, check_every=2)
-    r1 = d1(jnp.asarray(llr))
-    r2 = d2(jnp.asarray(llr))
-    ok1 = int(np.asarray(r1.ok).sum())
-    ok2 = int(np.asarray(r2.ok).sum())
-    assert ok1 > 24
-    assert abs(ok1 - ok2) <= max(6, ok1 // 5)
-    conv2 = np.asarray(r2.conv_iter)
-    assert set(np.unique(conv2)) <= {-1} | set(range(1, iters, 2))
-    # a frame whose serial conv is c is detected at the next check
-    # boundary: conv2 == c rounded up to the window's last sweep (odd at
-    # ce=2) for every frame that stays converged
-    conv1 = np.asarray(r1.conv_iter)
-    both = (conv1 >= 0) & (conv2 >= 0)
-    assert (conv2[both] == 2 * (conv1[both] // 2) + 1).all()
-
-
-def test_check_every_validation(wimax):
-    info = wimax.standard_encode_spec.info_pos("orig")
-    with pytest.raises(ValueError, match="divide"):
-        make_qc_decoder(wimax.qc, info, 9, "spa", interpret=True,
-                        track_norm=False, check_every=2)
-    with pytest.raises(ValueError, match="track_norm"):
-        make_qc_decoder(wimax.qc, info, 8, "spa", interpret=True,
-                        track_norm=True, check_every=2)
-    from ldpc_tpu.sim.config import SimOptions
-
-    with pytest.raises(ValueError, match="divide"):
-        SimOptions(matrix="x", blocks=1, iterations=10,
-                   check_every=4).resolved()
-    with pytest.raises(ValueError, match="normalized-llr"):
-        SimOptions(matrix="x", blocks=1, iterations=12, check_every=2,
-                   normalized_llr=True).resolved()
-
-
-def test_check_every_census_amortizes():
-    """The census charges syndrome ops / check_every -- ce=2 must sit
-    strictly between ce=1 and a syndrome-free count."""
-    from ldpc_tpu.analysis.roofline import decode_census
-    from ldpc_tpu.sim.runner import load_code
-
-    qc = load_code("builtin:wimax_1152_0.5.alist.txt").qc
-    c1 = decode_census(qc, "spa", "layered").total()
-    c2 = decode_census(qc, "spa", "layered", check_every=2).total()
-    c8 = decode_census(qc, "spa", "layered", check_every=8).total()
-    assert c8 < c2 < c1
-    # syndrome is ~14% of a layered SPA iteration at WiMAX R1/2
-    syn = (c1 - c2) * 2
-    assert 0.08 * c1 < syn < 0.22 * c1
-
-
-def test_runner_check_every_end_to_end():
-    from ldpc_tpu.sim.config import SimOptions
-    from ldpc_tpu.sim.runner import load_code, run_simulation
-
-    code = load_code("builtin:wimax_576_0.5.alist.txt")
-    opts = SimOptions(
-        matrix="builtin:wimax_576_0.5.alist.txt",
-        blocks=256, batch=256, iterations=6, ber=True, fer=True,
-        fidelity="exact", schedule="layered", kernel="pallas",
-        initial_snr=2.0, end_snr=2.0, step_snr=1.0, seed=3, quiet=True,
-        two_phase="off", check_every=2,
-    )
-    res = run_simulation(opts, code)
-    pt = res.snr_points[0]
-    assert 0.0 <= pt.fer <= 1.0
-    assert res.config.check_every == 2
